@@ -35,3 +35,9 @@ import pytest  # noqa: E402
 @pytest.fixture(scope="session")
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (skips without one); run on the "
+        "card with `python -m pytest --noconftest tests/test_torch_cuda.py`")
