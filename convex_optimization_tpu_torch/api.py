@@ -27,17 +27,10 @@ from convex_optimization_tpu_torch.ops.matvec import (
     block_power_t_plain,
 )
 from convex_optimization_tpu_torch.solvers import bcd as bcd_mod
-from convex_optimization_tpu_torch.solvers.common import SolverConfig
-
-#: methods of the JAX package that later PRs port, with their ROADMAP item
-_NOT_YET = {
-    "fista": "queue 1, item 9",
-    "ista": "queue 1, item 9",
-    "bcd_batch": "queue 1, item 10",
-    "fista_ws": "queue 1, item 11",
-    "bcd_ws": "queue 1, item 11",
-    "admm": "queue 1, item 12",
-}
+from convex_optimization_tpu_torch.solvers.common import (
+    NOT_PORTED,
+    SolverConfig,
+)
 
 
 @dataclasses.dataclass
@@ -94,10 +87,16 @@ def solve(problem: Problem, method: str = "bcd_pallas", *,
 
     method: 'bcd_pallas' (K1-K4: the CUDA kernels for a CUDA problem,
     their plain versions for a CPU problem) or 'bcd' (the plain reference
-    sweep).  Extra kwargs override SolverConfig fields."""
-    if method in _NOT_YET:
+    sweep); 'bcd_batch' solves a grid and is reached through
+    ``lambda_path``.  Extra kwargs override SolverConfig fields."""
+    if method in NOT_PORTED:
         raise NotImplementedError(
-            f"method {method!r} is not ported yet (ROADMAP {_NOT_YET[method]})")
+            f"method {method!r} is not ported yet "
+            f"(ROADMAP {NOT_PORTED[method]})")
+    if method == "bcd_batch":
+        raise ValueError(
+            "method 'bcd_batch' solves a LAMBDA GRID, not a single point — "
+            "use lambda_path(problem, cfg, method='bcd_batch')")
     if method not in ("bcd", "bcd_pallas"):
         raise ValueError(f"unknown method {method!r}")
     cfg = SolverConfig() if cfg is None else cfg

@@ -19,6 +19,7 @@ import torch
 
 from convex_optimization_tpu_torch.core.problem import Problem
 from convex_optimization_tpu_torch.models.penalties import Penalty
+from convex_optimization_tpu_torch.ops.matvec import neg_at_r_t
 
 
 class GapInfo(NamedTuple):
@@ -106,3 +107,14 @@ def lambda_max(A: torch.Tensor, b: torch.Tensor,
                penalty: Penalty) -> torch.Tensor:
     """Smallest lam1 at which x* = 0 is optimal: raw dual norm of A^T b."""
     return raw_dual_norm(A.T @ b, penalty)
+
+
+def lambda_max_t(A_t: torch.Tensor, b: torch.Tensor,
+                 penalty: Penalty) -> torch.Tensor:
+    """``lambda_max`` through the witness kernel K3: z = A^T b in one pass
+    over A_t (n_blocks, B, m) (``convex_optimization_tpu/core/
+    objective.py:155``)."""
+    n_blocks, B, _ = A_t.shape
+    z = neg_at_r_t(A_t, -b, torch.zeros((n_blocks * B,), dtype=A_t.dtype,
+                                        device=A_t.device), 0.0)
+    return raw_dual_norm(z, penalty)

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels; count their launches.
 
 The sources in ``csrc/`` have a plain C interface, so they are compiled by
-``nvcc`` alone (seconds; no PyTorch headers) into one shared library,
+``nvcc`` alone (seconds; no PyTorch headers), one process per source, all
+started together, and linked into one shared library,
 ``build/torch_kernels/libcot_kernels-<hash>.so`` at the repo root, named by
 the hash of the sources and flags: the first use after a source change
 rebuilds, later uses load the cached build.  The library is loaded with
@@ -76,15 +77,33 @@ def _so_path() -> str:
     return os.path.join(_BUILD_DIR, f"libcot_kernels-{h.hexdigest()[:16]}.so")
 
 
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands at once; raise with the first failure's output."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+
+
 def _compile(so: str) -> None:
+    """One nvcc per source, all started together, then one link."""
     os.makedirs(_BUILD_DIR, exist_ok=True)
     tmp = f"{so}.tmp.{os.getpid()}"
     cu = [s for s in sources() if s.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    objs = [f"{tmp}.{os.path.basename(s)}.o" for s in cu]
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    try:
+        _run([[_nvcc(), *compile_flags, "-c", "-o", o, s]
+              for s, o in zip(cu, objs)])
+        _run([[_nvcc(), *NVCC_FLAGS, "-o", tmp, *objs]])
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     os.replace(tmp, so)
 
 
@@ -96,10 +115,20 @@ def _declare(lib) -> None:
                                      _VP]
     lib.cot_neg_at_r_t.argtypes = [_VP, _VP, _VP, _VP, _I, _I, _Fl, _VP]
     lib.cot_block_power_t.argtypes = [_VP, _VP, _I, _I, _I, _I, _Fl, _VP]
+    lib.cot_batch_sweep_grid.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+    lib.cot_batch_sweep_t.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                                      _VP, _VP, _VP, _I, _I, _I, _I, _Fl,
+                                      _I, _I, _VP]
+    lib.cot_ax_minus_b_batch_t.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I,
+                                           _I, _I, _I, _VP]
+    lib.cot_neg_at_r_batch_t.argtypes = [_VP, _VP, _VP, _VP, _I, _I, _I, _I,
+                                         _Fl, _VP]
     lib.cot_error_string.argtypes = [_I]
     lib.cot_error_string.restype = ctypes.c_char_p
     for fn in (lib.cot_sweep_grid, lib.cot_sweep_t, lib.cot_ax_minus_b_t,
-               lib.cot_neg_at_r_t, lib.cot_block_power_t):
+               lib.cot_neg_at_r_t, lib.cot_block_power_t,
+               lib.cot_batch_sweep_grid, lib.cot_batch_sweep_t,
+               lib.cot_ax_minus_b_batch_t, lib.cot_neg_at_r_batch_t):
         fn.restype = _I
 
 

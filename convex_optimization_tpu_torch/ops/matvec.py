@@ -98,16 +98,17 @@ def witness_gamma(m: int) -> float:
 
 def neg_at_r_t_plain(A_t: torch.Tensor, r: torch.Tensor, x: torch.Tensor,
                      lam2: float, chunk: int = 8192) -> torch.Tensor:
-    """Plain version of K3, summed in float64 and rounded to float32: its
-    error, half an ulp of z, lies inside K3's bound, so the polish
-    certificate stays sound on the CPU path too (a BLAS sgemv's serial
-    chains would not).  Chunked so the f64 copy stays small."""
+    """Plain version of K3, summed in float64 and rounded to A_t's dtype
+    (float32 on the kernel's path): its error, half an ulp of z, lies
+    inside K3's bound, so the polish certificate stays sound on the CPU
+    path too (a BLAS sgemv's serial chains would not).  Chunked so the f64
+    copy stays small."""
     A2 = _flat(A_t)
     r64 = r.to(torch.float64)
     z = torch.empty((A2.shape[0],), dtype=torch.float64, device=A2.device)
     for c0 in range(0, A2.shape[0], chunk):
         z[c0:c0 + chunk] = torch.mv(A2[c0:c0 + chunk].to(torch.float64), r64)
-    return (-z - lam2 * x.to(torch.float64)).to(torch.float32)
+    return (-z - lam2 * x.to(torch.float64)).to(A_t.dtype)
 
 
 def neg_at_r_t(A_t: torch.Tensor, r: torch.Tensor, x: torch.Tensor,

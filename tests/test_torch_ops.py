@@ -227,3 +227,31 @@ def test_k3_depth_and_witness_gamma():
 def test_jax_runs_on_cpu_here():
     # the JAX references above ran on the CPU backend (interpret mode)
     assert jax.default_backend() == "cpu"
+
+
+def test_ctypes_declarations_match_the_c_entry_points():
+    """Every extern "C" entry point in csrc/ is declared to ctypes with as
+    many argument types as its C signature has parameters (ctypes passes
+    surplus arguments through unchecked, so a missing one is a crash on the
+    card, not an error)."""
+    import re
+    import types
+
+    class FakeLib:
+        def __getattr__(self, name):
+            fn = types.SimpleNamespace()
+            object.__setattr__(self, name, fn)
+            return fn
+
+    lib = FakeLib()
+    _build._declare(lib)
+    sig = re.compile(r"^(?:int|const char\*) (cot_\w+)\(([^)]*)\)\s*\{",
+                     re.M)
+    found = {}
+    for src in _build.sources():
+        with open(src) as f:
+            for name, params in sig.findall(f.read()):
+                found[name] = len([p for p in params.split(",") if p.strip()])
+    assert len(found) >= 10
+    for name, n_params in found.items():
+        assert len(getattr(lib, name).argtypes) == n_params, name

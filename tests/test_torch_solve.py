@@ -150,7 +150,7 @@ def test_stall_and_max_iters_stop_the_loop():
 
 
 @pytest.mark.parametrize("method", ["fista", "ista", "admm", "bcd_ws",
-                                    "fista_ws", "bcd_batch"])
+                                    "fista_ws"])
 def test_unported_methods_raise(method):
     inst, _, _ = make_lasso_instance_host(8, 32, 64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
