@@ -39,11 +39,23 @@ non-zero without one.  Phases, each of which fails the run if it fails:
      lambda_path(method="bcd_batch", tol=1e-6, max_iters=10000,
      gap_every=10, stall_checks=10, block_size=128), every point's f64
      rel_gap <= 1e-4 (the f32 floor of this configuration), then 5-fold
-     cv_lambda_path on the same instance, its refit certified the same.
+     cv_lambda_path on the same instance, its refit certified the same;
+  8. config 4 (group lasso, 20k x 200k, 1000 groups of 200): group K1
+     (B = 200) and K9 (B = 2000, a tile K1 cannot hold) against their
+     plain versions at a small shape, on a 16-block slice and on the full
+     A_t, timed with CUDA events; a 4096 x 4000 group solve + polish on the
+     card through both routes against the same on the CPU; then two
+     certified solves, solve(bcd_pallas, tol=1e-6, gap_every=10,
+     stall_checks=15) with block_size=128 (B = 200: K1 + group prox) and
+     block_size=3200 (B = 2000: K9), each polished by the group polish to
+     an f64 rel_gap <= 1e-6.
 
 Every path reads the launch counts set to 0 just before it.  Prints a JSON
-line per measured phase, one for the kernels, the card's name and power
-limit, and last {"ok": true, "device": {...}}.
+line per measured phase, one for the kernels (each with its time, the
+plain version's, a library call's where one PyTorch call computes the same
+function, and its bound: the larger of its bytes at 3.35 TB/s and its
+operations at 67 TFLOP/s f32), the card's name and power limit, and last
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -65,6 +77,13 @@ C2_CFG = dict(tol=1e-6, max_iters=10_000, gap_every=10, stall_checks=10,
 C2_F32_FLOOR = 1e-4          # BASELINE.md:88
 CV_K = 5
 BATCH_L = 10
+# config 4: BASELINE.json:10, core/datagen.CONFIGS["config4"]
+C4_SOLVE = dict(tol=1e-6, max_iters=20_000, gap_every=10, stall_checks=15)
+C4_ROUTES = (("k1_group", 128, 200, "sweep_t"),       # name, block_size, B,
+             ("k9", 3200, 2000, "sweep_tiled_t"))     # the sweep it runs
+# the H100 SXM's published peaks (NVIDIA data sheet, 700 W)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
 KERNELS = {
     "sweep_t": ("convex_optimization_tpu_torch/csrc/sweep.cu",
                 "convex_optimization_tpu/ops/bcd_sweep_vpu.py:166"),
@@ -82,6 +101,9 @@ KERNELS = {
     "neg_at_r_batch_t": (
         "convex_optimization_tpu_torch/csrc/matvec_batch.cu",
         "convex_optimization_tpu/ops/bcd_sweep_vpu_batch.py:318"),
+    "sweep_tiled_t": (
+        "convex_optimization_tpu_torch/csrc/sweep_tiled.cu",
+        "convex_optimization_tpu/ops/bcd_sweep_pallas_tiled.py:94"),
 }
 MAIN_KERNELS = ("sweep_t", "ax_minus_b_t", "neg_at_r_t", "block_power_t")
 PATH_KERNELS = ("block_power_t", "batch_sweep_t", "ax_minus_b_batch_t",
@@ -121,13 +143,26 @@ def require(cond: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
-def record(stats: dict, name: str, err: float, ms=None,
-           plain_ms=None) -> None:
-    """Keep a kernel's largest error over every check, and its times."""
+def record(stats: dict, name: str, err: float, ms=None, plain_ms=None,
+           library_ms=None, work=None) -> None:
+    """Keep a kernel's largest error over every check, and its times at
+    the timed shape with the work it does there: ``work`` = (bytes, flops),
+    each input read once and each output written once."""
     s = stats.setdefault(name, {"max_abs_err": 0.0})
     s["max_abs_err"] = max(s["max_abs_err"], err)
     if ms is not None:
-        s["ms"], s["plain_ms"] = ms, plain_ms
+        s["ms"], s["plain_ms"], s["library_ms"] = ms, plain_ms, library_ms
+        nbytes, flops = work
+        by_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        by_ops = 1e3 * flops / F32_FLOP_PER_S
+        s["bound_ms"] = max(by_bytes, by_ops)
+        s["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+
+
+def sweep_work(m: int, n: int, n_blocks: int) -> tuple[int, int]:
+    """(bytes, flops) of one sweep (K1 or K9): A once, x, r, the steps and
+    the keep mask in, x and r out; two multiply-adds per element of A."""
+    return 4 * m * n + 4 * (2 * n + 2 * m + n_blocks) + n, 4 * m * n
 
 
 def compare_kernels(A_t, b, x_probe, keep, label: str, stats: dict,
@@ -154,9 +189,11 @@ def compare_kernels(A_t, b, x_probe, keep, label: str, stats: dict,
     err = float((L_k - L_p).abs().max())
     require(err <= 1e-4 * float(L_p.abs().max()),
             f"{label} block_power_t err {err}")
+    n, iters = nb * B, 48
     times = (time_ms(lambda: mv.block_power_t(A_t), 1),
-             time_ms(lambda: mv.block_power_t_plain(A_t), 1)) \
-        if timed else (None, None)
+             time_ms(lambda: mv.block_power_t_plain(A_t), 1), None,
+             (4 * m * n + 4 * nb, (4 * iters + 2) * m * n)) \
+        if timed else ()
     record(stats, "block_power_t", err, *times)
 
     # K2, row by row: |r_i - r'_i| <= 1e-5 (||A[i, :]|| ||x|| + |b_i|),
@@ -173,9 +210,11 @@ def compare_kernels(A_t, b, x_probe, keep, label: str, stats: dict,
             f"{float((diff / row_tol).max())}")
     require(bool((r_p.abs() > row_tol).any()),
             f"{label} ax_minus_b_t limit cannot tell r from 0")
+    A = A_t.view(n, m).T
     times = (time_ms(lambda: mv.ax_minus_b_t(A_t, x_probe, b), 10),
-             time_ms(lambda: mv.ax_minus_b_t_plain(A_t, x_probe, b), 10)) \
-        if timed else (None, None)
+             time_ms(lambda: mv.ax_minus_b_t_plain(A_t, x_probe, b), 10),
+             time_ms(lambda: torch.addmv(b, A, x_probe, beta=-1.0), 10),
+             (4 * m * n + 4 * n + 8 * m, 2 * m * n)) if timed else ()
     record(stats, "ax_minus_b_t", err, *times)
 
     # K3 (its stated bound, with ||A_j|| <= max column norm)
@@ -188,7 +227,10 @@ def compare_kernels(A_t, b, x_probe, keep, label: str, stats: dict,
     require(err <= bound, f"{label} neg_at_r_t err {err} > bound {bound}")
     times = (time_ms(lambda: mv.neg_at_r_t(A_t, r_p, zeros_n, 0.0), 10),
              time_ms(lambda: mv.neg_at_r_t_plain(A_t, r_p, zeros_n, 0.0),
-                     10)) if timed else (None, None)
+                     10),
+             time_ms(lambda: torch.addmv(zeros_n, A.T, r_p, beta=0.0,
+                                         alpha=-1.0), 10),
+             (4 * m * n + 4 * m + 8 * n, 2 * m * n)) if timed else ()
     record(stats, "neg_at_r_t", err, *times)
 
     # K1: one sweep from x = 0, r = -b, l1 at 0.1 lambda_max, with the
@@ -210,8 +252,8 @@ def compare_kernels(A_t, b, x_probe, keep, label: str, stats: dict,
     times = (time_ms(lambda: k1.sweep_t(A_t, x0, r0, steps, keep, pen, 0.0),
                      10),
              time_ms(lambda: k1.sweep_t_plain(A_t, x0, r0, steps, keep,
-                                              pen, 0.0), 2)) \
-        if timed else (None, None)
+                                              pen, 0.0), 2),
+             None, sweep_work(m, n, nb)) if timed else ()
     record(stats, "sweep_t", max(ex, float((rk - rp).abs().max())), *times)
     torch.cuda.synchronize()
     log(f"# kernels vs plain [{label}] A_t={tuple(A_t.shape)}: ok")
@@ -252,9 +294,12 @@ def compare_batch_kernels(A_t, b, label: str, stats: dict,
             f"{float((diff / tol).max())}")
     require(bool((R_p.abs() > tol).any()),
             f"{label} ax_minus_b_batch_t limit cannot tell R from 0")
+    A_rows, X_rows = A_t.view(n, m), kb.rows_of(X).contiguous()
     times = (time_ms(lambda: kb.ax_minus_b_batch_t(A_t, X, b), 10),
-             time_ms(lambda: kb.ax_minus_b_batch_t_plain(A_t, X, b), 10)) \
-        if timed else (None, None)
+             time_ms(lambda: kb.ax_minus_b_batch_t_plain(A_t, X, b), 10),
+             time_ms(lambda: torch.addmm(b, X_rows, A_rows, beta=-1.0), 10),
+             (4 * m * n + 4 * L * n + 4 * m + 4 * L * m, 2 * m * n * L)) \
+        if timed else ()
     record(stats, "ax_minus_b_batch_t", float(diff.max()), *times)
 
     # K7
@@ -269,7 +314,11 @@ def compare_batch_kernels(A_t, b, label: str, stats: dict,
             f"{float((diff / tolz).max())}")
     times = (time_ms(lambda: kb.neg_at_r_batch_t(A_t, R_p, X, lam2), 10),
              time_ms(lambda: kb.neg_at_r_batch_t_plain(A_t, R_p, X, lam2),
-                     10)) if timed else (None, None)
+                     10),
+             time_ms(lambda: torch.addmm(X_rows, R_p, A_rows.T, beta=-lam2,
+                                         alpha=-1.0), 10),
+             (4 * m * n + 4 * L * m + 8 * L * n, 2 * m * n * L)) \
+        if timed else ()
     record(stats, "neg_at_r_batch_t", float(diff.max()), *times)
 
     # K5 from X = 0, R = -b (as a path starts), l1 on a geometric grid
@@ -326,7 +375,7 @@ def compare_batch_kernels(A_t, b, label: str, stats: dict,
                         0.0)
     err = max(err, check("L=1 vs K1", X5[:, 0].reshape(n), R5[0], x1, r1))
     by_L = {}
-    times = (None, None)
+    times = ()
     if timed:
         for Lt in (1, 4, 10, 16):
             lam_t = torch.as_tensor(np.geomspace(0.95, 0.01, Lt) * lmax,
@@ -341,7 +390,9 @@ def compare_batch_kernels(A_t, b, label: str, stats: dict,
                              5)
         times = (by_L[BATCH_L],
                  time_ms(lambda: kb.batch_sweep_t_plain(
-                     A_t, X0, R0, steps, lam1s, 0.0, pen), 1))
+                     A_t, X0, R0, steps, lam1s, 0.0, pen), 1), None,
+                 (4 * m * n + 4 * L * (2 * n + 2 * m) + 4 * (L + nb),
+                  4 * m * n * L))
     record(stats, "batch_sweep_t", err, *times)
     torch.cuda.synchronize()
     log(f"# batched kernels vs plain [{label}] A_t={tuple(A_t.shape)} "
@@ -374,7 +425,7 @@ def small_path_reference(device) -> None:
 
     cfg = SolverConfig(**C2_CFG)
     inst_c, _, _ = make_lasso_instance_host(1, 500, 2000, device=device)
-    inst_h, _, _ = make_lasso_instance_host(1, 500, 2000)
+    inst_h, _, _ = make_lasso_instance_host(1, 500, 2000, device="cpu")
     out = {}
     for method in ("bcd_batch", "bcd_pallas"):
         runs = []
@@ -506,6 +557,230 @@ def config2_cv(problem, gpu: str, power: str) -> None:
     }), flush=True)
 
 
+def compare_group_sweeps(A_rows, b, lam1: float, gsize: int, weights,
+                         keep, widths: dict, label: str, stats: dict,
+                         timed: bool) -> dict:
+    """Group K1 and K9 against their plain versions on one (n, m) A_rows,
+    each at its own block width (``widths``: kernel name -> B): one sweep
+    from x = 0, r = -b with group_l2 over groups of ``gsize``.
+    Tolerances as K1's (1e-5, 1e-4 past 64 blocks).  Returns each
+    kernel's and plain version's ms and bound when ``timed``."""
+    import torch
+
+    from convex_optimization_tpu_torch.models.penalties import group_l2
+    from convex_optimization_tpu_torch.ops import bcd_sweep as k1
+    from convex_optimization_tpu_torch.ops import bcd_sweep_tiled as k9
+    from convex_optimization_tpu_torch.ops import matvec as mv
+
+    n, m = A_rows.shape
+    pen = group_l2(lam1, n // gsize, weights)
+    zeros_n = torch.zeros(n, device=A_rows.device)
+    out, checked = {}, {}
+    for name, B in widths.items():
+        kernel, plain = {"sweep_t": (k1.sweep_t, k1.sweep_t_plain),
+                         "sweep_tiled_t": (k9.sweep_tiled_t,
+                                           k9.sweep_tiled_t_plain)}[name]
+        A_t = A_rows.view(n // B, B, m)
+        nb = n // B
+        steps = k1.block_steps(mv.block_power_t_plain(A_t), 0.0)
+        args = (A_t, zeros_n, -b, steps, keep, pen, 0.0)
+        xk, rk = kernel(*args)
+        xp, rp = plain(*args)
+        tol = 1e-4 if nb > 64 else 1e-5
+        ex = float((xk - xp).abs().max())
+        er = float(torch.linalg.vector_norm(rk - rp))
+        require(float(xp.abs().max()) > 0, f"{label} {name}: x stayed 0")
+        require(ex <= tol * max(1.0, float(xp.abs().max())),
+                f"{label} {name} group x err {ex} (tol {tol})")
+        require(er <= tol * float(torch.linalg.vector_norm(rp)),
+                f"{label} {name} group r err {er} (tol {tol})")
+        if keep is not None:
+            require(bool((xk[~keep] == 0).all()),
+                    f"{label} {name} kept a masked x")
+        err = max(ex, float((rk - rp).abs().max()))
+        record(stats, name, err)
+        checked[name] = f"B={B} max_abs_err={err:.3e} tol={tol:g} (relative)"
+        if timed:
+            out[name] = dict(
+                B=B, ms=time_ms(lambda: kernel(*args), 5),
+                plain_ms=time_ms(lambda: plain(*args), 1),
+                work=sweep_work(m, n, nb), max_abs_err=err, tol=tol)
+    torch.cuda.synchronize()
+    log(f"# group sweeps vs plain [{label}] n={n} m={m}: ok {checked}")
+    return out
+
+
+def small_group_reference(device) -> None:
+    """4096 x 4000 group lasso (40 groups of 100, lam1 at 0.05 lam_max),
+    solved on the card through K1 (block_size 200) and K9 (block_size
+    2000) and on the CPU (plain versions) to an f32 rel_gap of 1e-5, each
+    polished: all certify 1e-6 in f64, the active groups agree, the sweep
+    counts agree within one check.  (At an f32 tol of 1e-6 the card, whose
+    K3 sums in f32, can sit just above it and end on the stall rule where
+    the CPU's f64-summed plain K3 does not: a floor, not a fault.)"""
+    import numpy as np
+
+    import convex_optimization_tpu_torch as cot
+    from convex_optimization_tpu_torch.core.datagen import (
+        make_lasso_instance_host,
+    )
+    from convex_optimization_tpu_torch.ops import _build
+
+    kw = dict(penalty_kind="group_l2", ngroups=40, lam1_frac=0.05)
+    inst_c, A, b = make_lasso_instance_host(4, 4096, 4000, device=device,
+                                            **kw)
+    inst_h, _, _ = make_lasso_instance_host(4, 4096, 4000, device="cpu",
+                                            **kw)
+    out = {}
+    for bs, kernel in ((200, "sweep_t"), (2000, "sweep_tiled_t")):
+        _build.reset_launches()
+        solve_kw = dict(C4_SOLVE, block_size=bs, tol=1e-5)
+        res_c = cot.solve(inst_c.problem, "bcd_pallas", **solve_kw)
+        require(_build.launches[kernel] == res_c.iterations > 0,
+                f"small group solve B={bs} did not run {kernel}")
+        res_h = cot.solve(inst_h.problem, "bcd_pallas", **solve_kw)
+        require(abs(res_c.iterations - res_h.iterations)
+                <= C4_SOLVE["gap_every"],
+                f"small group B={bs} sweeps {res_c.iterations} vs "
+                f"{res_h.iterations} (f32 rel_gap {res_c.rel_gap:.3e} vs "
+                f"{res_h.rel_gap:.3e})")
+        pr_c = cot.polish_support(inst_c.problem, res_c.x, tol=1e-6,
+                                  A_host=A, b_host=b)
+        pr_h = cot.polish_support(inst_h.problem, res_h.x, tol=1e-6,
+                                  A_host=A, b_host=b)
+        require(pr_c.rel_gap <= 1e-6 and pr_h.rel_gap <= 1e-6,
+                f"small group polish gaps {pr_c.rel_gap} {pr_h.rel_gap}")
+        act_c = np.abs(pr_c.x).reshape(40, -1).sum(axis=1) > 0
+        act_h = np.abs(pr_h.x).reshape(40, -1).sum(axis=1) > 0
+        require(bool((act_c == act_h).all()), "small group supports differ")
+        out[kernel] = dict(card_sweeps=res_c.iterations,
+                           cpu_sweeps=res_h.iterations,
+                           f32_card=res_c.rel_gap, f32_cpu=res_h.rel_gap,
+                           groups=int(act_c.sum()),
+                           rel_gap_card=pr_c.rel_gap,
+                           rel_gap_cpu=pr_h.rel_gap)
+    log(f"# small group reference 4096x4000: {out}")
+
+
+def config4(device, gpu: str, power: str, stats: dict) -> dict:
+    """Config 4 at contract size: the group sweeps against their plain
+    versions (16-block slice, full A_t, timed), then the certified solve +
+    group polish through K1 (B = 200) and through K9 (B = 2000).  Returns
+    the K9 route's launch counts."""
+    import numpy as np
+    import torch
+
+    import convex_optimization_tpu_torch as cot
+    from convex_optimization_tpu_torch.core.datagen import (
+        CONFIGS,
+        make_lasso_instance_host,
+    )
+    from convex_optimization_tpu_torch.ops import _build
+    from convex_optimization_tpu_torch.ops.bcd_sweep import (
+        pick_block_size_t,
+        sweep_route,
+    )
+
+    c4 = CONFIGS["config4"]
+    m, n, ng = c4["m"], c4["n"], c4["ngroups"]
+    t0 = time.perf_counter()
+    inst, A_np, b_np = make_lasso_instance_host(**c4, device=device)
+    torch.cuda.synchronize()
+    datagen_s = time.perf_counter() - t0
+    problem = inst.problem
+    lam1 = float(problem.penalty.lam1)
+    log(f"# datagen {m}x{n} group_l2 ({ng} groups): {datagen_s:.2f} s, "
+        f"lam1 {lam1:.6g}")
+    A_rows = problem.A_rows
+    widths = {kernel: B for _, _, B, kernel in C4_ROUTES}
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 4)
+    cut = 16 * max(widths.values())
+    keep = (torch.rand(cut, generator=gen) > 0.1).to(device)
+    gsize = n // ng
+    compare_group_sweeps(A_rows[:cut], problem.b, lam1, gsize, None, keep,
+                         widths, "config4-slice", stats, timed=False)
+    timed = compare_group_sweeps(A_rows, problem.b, lam1, gsize, None, None,
+                                 widths, "config4-full", stats, timed=True)
+    k9 = timed["sweep_tiled_t"]
+    record(stats, "sweep_tiled_t", k9["max_abs_err"], k9["ms"],
+           k9["plain_ms"], None, k9["work"])
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    print(json.dumps({
+        "metric": f"config4_group_sweep_ms_{m}x{n}",
+        "sweeps": {name: {k: v for k, v in t.items() if k != "work"}
+                   | {"bound_ms": 1e3 * t["work"][0] / HBM_BYTES_PER_S}
+                   for name, t in timed.items()},
+        "gpu": gpu, "power_limit": power}), flush=True)
+
+    k9_launches = {}
+    for route, block_size, B, kernel in C4_ROUTES:
+        require(pick_block_size_t(n, block_size, n // ng) == (B, 0),
+                f"config 4 block_size {block_size} is not B = {B}")
+        want = "k1" if kernel == "sweep_t" else "k9"
+        require(sweep_route(B, m, sms) == want,
+                f"B = {B} routes to {sweep_route(B, m, sms)}, not {want}")
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        res = cot.solve(problem, "bcd_pallas", block_size=block_size,
+                        **C4_SOLVE)
+        pr = cot.polish_support(problem, res.x, tol=C4_SOLVE["tol"],
+                                A_host=A_np, b_host=b_np, verbose=True)
+        torch.cuda.synchronize()
+        launches = dict(_build.launches)
+        other = "sweep_tiled_t" if kernel == "sweep_t" else "sweep_t"
+        log(f"# config4 {route}: sweeps={res.iterations} f32 rel_gap="
+            f"{res.rel_gap:.3e} wall={res.wall_time_s:.3f} s; polish "
+            f"rel_gap={pr.rel_gap:.3e} kept={pr.kept} wall="
+            f"{pr.wall_time_s:.3f} s; launches {launches}")
+        require(launches.get(kernel, 0) == res.iterations > 0,
+                f"config4 {route}: {kernel} launches "
+                f"{launches.get(kernel, 0)} != sweeps {res.iterations}")
+        require(launches.get(other, 0) == 0,
+                f"config4 {route}: {other} launched")
+        for name in ("ax_minus_b_t", "neg_at_r_t", "block_power_t"):
+            require(launches.get(name, 0) > 0,
+                    f"config4 {route}: {name} never launched")
+        require(res.x.shape == (n,) and bool(torch.isfinite(res.x).all()),
+                f"config4 {route}: non-finite or misshapen x")
+        require(pr.x.shape == (n,) and bool(np.isfinite(pr.x).all()),
+                f"config4 {route}: polish x")
+        require(pr.rel_gap <= C4_SOLVE["tol"],
+                f"config4 {route}: f64 certificate {pr.rel_gap}")
+        ratio = witness_bound_check(problem, pr.x, b_np)
+        groups = int((np.abs(pr.x).reshape(ng, -1).sum(axis=1) > 0).sum())
+        passes = (1.0 if kernel == "sweep_t" else 2.0) \
+            + 2.0 / C4_SOLVE["gap_every"]
+        sweeps = res.iterations
+        print(json.dumps({
+            "metric": f"config4_time_to_certified_1e-06_rel_gap_group_"
+                      f"{m}x{n}_{route}",
+            "block": B,
+            "sweeps": sweeps,
+            "solve_wall_s": res.wall_time_s,
+            "polish_wall_s": pr.wall_time_s,
+            "polish_gather_s": pr.gather_s,
+            "total_s": res.wall_time_s + pr.wall_time_s,
+            "ms_per_sweep": 1e3 * res.wall_time_s / max(sweeps, 1),
+            "achieved_gb_s": 4.0 * m * n * passes * sweeps
+            / res.wall_time_s / 1e9,
+            "passes_per_sweep": passes,
+            "k4_setup_s": res.setup_time_s,
+            "datagen_s": datagen_s,
+            "active_groups": groups,
+            "kept": pr.kept,
+            "polish_sweeps": pr.iterations,
+            "f32_rel_gap": res.rel_gap,
+            "f64_rel_gap": pr.rel_gap,
+            "k3_bound_ratio": ratio,
+            "launches": launches,
+            "gpu": gpu,
+            "power_limit": power,
+        }), flush=True)
+        if kernel == "sweep_tiled_t":
+            k9_launches = launches
+    return k9_launches
+
+
 def small_reference(device) -> None:
     """200 x 800: the solve on the card (kernels) against the same solve on
     the CPU (plain versions); both must certify after the polish."""
@@ -516,7 +791,7 @@ def small_reference(device) -> None:
 
     kw = dict(SOLVE_KW, block_size=40)
     inst_c, A, b = make_lasso_instance_host(0, 200, 800, device=device)
-    inst_h, _, _ = make_lasso_instance_host(0, 200, 800)
+    inst_h, _, _ = make_lasso_instance_host(0, 200, 800, device="cpu")
     res_c = cot.solve(inst_c.problem, "bcd_pallas", **kw)
     res_h = cot.solve(inst_h.problem, "bcd_pallas", **kw)
     require(abs(res_c.iterations - res_h.iterations) <= kw["gap_every"],
@@ -702,18 +977,38 @@ def main() -> None:
     # 7. config 2: the lambda path, then K-fold CV
     path_launches = config2_path(p2, gpu_name, power_limit)
     config2_cv(p2, gpu_name, power_limit)
+    del p2, inst2
+    torch.cuda.empty_cache()
+
+    # 8. config 4: group K1 and K9, both routes certified
+    # a small shape first: 128 groups of 16 with random weights in
+    # [0.5, 1.5), blocks of 2 groups (K1) and of 16 (K9), a partly-zero mask
+    small = torch.randn(2048, 512, generator=gen)
+    small /= torch.linalg.vector_norm(small, dim=1, keepdim=True)
+    b_g = torch.randn(512, generator=gen).to(device)
+    w_g = 0.5 + torch.rand(128, generator=gen).to(device)
+    compare_group_sweeps(
+        small.to(device), b_g, 0.1 * float(b_g.norm()), 16, w_g,
+        (torch.rand(2048, generator=gen) > 0.1).to(device),
+        {"sweep_t": 32, "sweep_tiled_t": 256}, "small", stats, timed=False)
+    small_group_reference(device)
+    k9_launches = config4(device, gpu_name, power_limit, stats)
 
     require(all(math.isfinite(stats[k]["ms"]) for k in KERNELS),
             "kernel times")
     log(f"# chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     kernel_launches = {k: launches[k] for k in MAIN_KERNELS}
     kernel_launches.update({k: path_launches[k] for k in KERNELS
-                            if k not in MAIN_KERNELS})
+                            if k not in MAIN_KERNELS + ("sweep_tiled_t",)})
+    kernel_launches["sweep_tiled_t"] = k9_launches["sweep_tiled_t"]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": kernel_launches[name],
          "max_abs_err": stats[name]["max_abs_err"],
-         "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"]}
+         "ms": stats[name]["ms"], "plain_ms": stats[name]["plain_ms"],
+         "bound_ms": stats[name]["bound_ms"],
+         "bound_by": stats[name]["bound_by"],
+         "library_ms": stats[name]["library_ms"]}
         for name, (src, rep) in KERNELS.items()]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

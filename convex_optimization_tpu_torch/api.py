@@ -17,11 +17,7 @@ from typing import Any, Optional
 import torch
 
 from convex_optimization_tpu_torch.core.problem import Problem
-from convex_optimization_tpu_torch.ops import _build
-from convex_optimization_tpu_torch.ops.bcd_sweep import (
-    pick_block_size_t,
-    sweep_grid,
-)
+from convex_optimization_tpu_torch.ops.bcd_sweep import pick_block_size_t
 from convex_optimization_tpu_torch.ops.matvec import (
     block_power_t,
     block_power_t_plain,
@@ -85,9 +81,9 @@ def solve(problem: Problem, method: str = "bcd_pallas", *,
           **cfg_overrides: Any) -> Result:
     """Solve a composite problem on the device of ``problem.A_t``.
 
-    method: 'bcd_pallas' (K1-K4: the CUDA kernels for a CUDA problem,
-    their plain versions for a CPU problem) or 'bcd' (the plain reference
-    sweep); 'bcd_batch' solves a grid and is reached through
+    method: 'bcd_pallas' (K1 or K9, K2-K4: the CUDA kernels for a CUDA
+    problem, their plain versions for a CPU problem) or 'bcd' (the plain
+    reference sweep); 'bcd_batch' solves a grid and is reached through
     ``lambda_path``.  Extra kwargs override SolverConfig fields."""
     if method in NOT_PORTED:
         raise NotImplementedError(
@@ -124,10 +120,8 @@ def solve(problem: Problem, method: str = "bcd_pallas", *,
             x0 = torch.nn.functional.pad(x0, (0, pad))
     problem = problem.with_block(bs)
 
-    if cfg.use_pallas and device.type == "cuda":
-        _build.load()
-        if problem.penalty.kind != "group_l2":
-            sweep_grid(device, bs, problem.m)
+    if cfg.use_pallas:
+        bcd_mod.prepare_sweep(problem.A_t)
 
     _sync(device)
     t0 = time.perf_counter()

@@ -10,6 +10,9 @@ A is generated as G (n, m) C-ordered and returned as the column-major
 view ``A = G.T``; the port's ``A_t`` is ``G`` reshaped to (n/B, B, m), so
 the device holds exactly one copy of the matrix and the upload needs no
 relayout.
+
+``CONFIGS`` holds contract configurations as the JAX package's
+``BENCH_CONFIGS`` (``BASELINE.json`` lines 7-11) states them.
 """
 
 from __future__ import annotations
@@ -24,12 +27,23 @@ from convex_optimization_tpu_torch.core.problem import (
     problem_from_numpy,
 )
 from convex_optimization_tpu_torch.utils import native
+from convex_optimization_tpu_torch.utils.device import require_cuda
 
 
 class Instance(NamedTuple):
     problem: Problem
     x_true: torch.Tensor     # planted coefficients
     support: torch.Tensor    # boolean planted support mask
+
+
+#: make_lasso_instance_host arguments of contract configurations (the JAX
+#: package's core/datagen.py BENCH_CONFIGS, at 5 % support and lam1 =
+#: 0.1 lam_max); the seed is the one its scripts use
+CONFIGS = {
+    # config 4: group lasso, 1000 contiguous groups of 200, 20k x 200k
+    "config4": dict(seed=0, m=20_000, n=200_000, penalty_kind="group_l2",
+                    ngroups=1000),
+}
 
 
 def make_lasso_instance_host(
@@ -44,11 +58,15 @@ def make_lasso_instance_host(
     penalty_kind: str = "l1",
     ngroups: int = 0,
     normalize_columns: bool = True,
-    device="cpu",
+    device=None,
     block: int | None = None,
 ):
     """Returns ``(Instance, A_np, b_np)``: the numpy copies let the host
-    polish phase read columns without fetching A back from the device."""
+    polish phase read columns without fetching A back from the device.
+    ``device`` defaults to the card (``require_cuda``); a CPU instance is
+    asked for with ``device="cpu"``."""
+    if device is None:
+        device = require_cuda()
     A = native.gaussian((n, m), seed=seed).T
     if normalize_columns:
         A /= np.linalg.norm(A, axis=0, keepdims=True)

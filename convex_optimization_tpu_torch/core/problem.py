@@ -30,6 +30,7 @@ from convex_optimization_tpu_torch.models.penalties import (
     l1,
     nonneg_l1,
 )
+from convex_optimization_tpu_torch.utils.device import require_cuda
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,13 +144,15 @@ def make_problem(A: torch.Tensor, b: torch.Tensor, lam1, *, lam2=0.0,
 def problem_from_numpy(A: np.ndarray, b: np.ndarray, penalty_kind: str,
                        lam1: float, lam2: float = 0.0, ngroups: int = 0,
                        weights=None, *, block: int | None = None,
-                       device="cpu") -> Problem:
+                       device=None) -> Problem:
     """The port's Problem from the numpy arrays the JAX package was given.
 
     A is (m, n) float32.  When A is column-major (``A.T`` C-contiguous, as
     the host generators make it) ``A_t`` is a view of that buffer on the
     CPU and one upload to another device; otherwise one transposing copy
-    is made first.  ``block`` defaults to ``default_block(n)``."""
+    is made first.  ``block`` defaults to ``default_block(n)``; ``device``
+    to the card (``require_cuda``): a CPU problem is asked for with
+    ``device="cpu"``."""
     A = np.asarray(A)
     if A.dtype != np.float32:
         raise ValueError(f"A must be float32, got {A.dtype}")
@@ -157,6 +160,8 @@ def problem_from_numpy(A: np.ndarray, b: np.ndarray, penalty_kind: str,
     block = default_block(n) if block is None else block
     if n % block:
         raise ValueError(f"block {block} does not divide n={n}")
+    if device is None:
+        device = require_cuda()
     At2 = np.ascontiguousarray(A.T)          # a view when A is F-ordered
     A_t = torch.from_numpy(At2).view(n // block, block, m).to(device)
     b_t = torch.from_numpy(np.ascontiguousarray(b, np.float32)).to(device)

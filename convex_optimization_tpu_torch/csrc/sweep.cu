@@ -34,8 +34,15 @@
 // they are recorded, not tuned, here (prefetching tile j+1 with cp.async
 // before the barrier is the first lever).
 //
-// Penalties: 0 = l1 (soft threshold), 1 = nonneg_l1 (shift and clip).
-// group_l2 is refused by the Python wrapper.
+// Penalties: 0 = l1 (soft threshold), 1 = nonneg_l1 (shift and clip),
+// 2 = group_l2 over contiguous groups of gsize coordinates (gsize divides
+// B), weights w (n / gsize,) or null for ones.  The group prox scales
+// v = x_j - t_j g by max(0, 1 - t_j lam1 w_g / max(||v_g||, 1e-30)); every
+// CTA sums ||v_g||^2 in the same fixed order (one warp per group, lane
+// stride then a shuffle tree), so x_j' stays bit-identical across CTAs.
+//
+// Blocks whose (B x rows) tile does not fit in shared memory go to K9
+// (csrc/sweep_tiled.cu), which streams the tile instead of holding it.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -61,14 +68,17 @@ __global__ void __launch_bounds__(kThreads)
 sweep_kernel(const float* __restrict__ A_t, const float* __restrict__ x_in,
              const float* __restrict__ r_in,
              const float* __restrict__ steps,
-             const uint8_t* __restrict__ mask, float* __restrict__ x_out,
-             float* __restrict__ r_out, float* partials, int n_blocks,
-             int B, int m, int rows, float lam1, float lam2, int kind) {
+             const uint8_t* __restrict__ mask, const float* __restrict__ w,
+             float* __restrict__ x_out, float* __restrict__ r_out,
+             float* partials, int n_blocks, int B, int m, int rows,
+             int gsize, float lam1, float lam2, int kind) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float smem[];
   float* tile = smem;               // (B, rows)
   float* r_s = tile + B * rows;     // (rows,)
-  float* dx_s = r_s + rows;         // (B,)
+  float* dx_s = r_s + rows;         // (B,): group v, then dx
+  float* xj_s = dx_s + B;           // (B,) x_j (group_l2)
+  float* sc_s = xj_s + B;           // (B / gsize,) group scales
 
   const int G = gridDim.x;
   const int c = blockIdx.x;
@@ -108,16 +118,52 @@ sweep_kernel(const float* __restrict__ A_t, const float* __restrict__ x_in,
     // prox: every CTA reduces the partials in the same order
     const float* pj = partials + (size_t)(j & 1) * G * B;
     const float t = steps[j];
-    for (int b = tid; b < B; b += blockDim.x) {
-      float g = 0.0f;
-      for (int q = 0; q < G; ++q) g += __ldcg(pj + (size_t)q * B + b);
-      const int k = j * B + b;
-      const float xj = x_in[k];
-      g = g + lam2 * xj;
-      float xn = prox(xj - t * g, t * lam1, kind);
-      if (mask != nullptr && mask[k] == 0) xn = 0.0f;
-      dx_s[b] = xn - xj;
-      if (c == 0) x_out[k] = xn;
+    if (kind != 2) {
+      for (int b = tid; b < B; b += blockDim.x) {
+        float g = 0.0f;
+        for (int q = 0; q < G; ++q) g += __ldcg(pj + (size_t)q * B + b);
+        const int k = j * B + b;
+        const float xj = x_in[k];
+        g = g + lam2 * xj;
+        float xn = prox(xj - t * g, t * lam1, kind);
+        if (mask != nullptr && mask[k] == 0) xn = 0.0f;
+        dx_s[b] = xn - xj;
+        if (c == 0) x_out[k] = xn;
+      }
+    } else {
+      for (int b = tid; b < B; b += blockDim.x) {
+        float g = 0.0f;
+        for (int q = 0; q < G; ++q) g += __ldcg(pj + (size_t)q * B + b);
+        const float xj = x_in[j * B + b];
+        g = g + lam2 * xj;
+        xj_s[b] = xj;
+        dx_s[b] = xj - t * g;
+      }
+      __syncthreads();
+      const int gpb = B / gsize;
+      for (int q = warp; q < gpb; q += nwarps) {
+        float s = 0.0f;
+        for (int i = lane; i < gsize; i += 32) {
+          const float v = dx_s[q * gsize + i];
+          s = fmaf(v, v, s);
+        }
+        for (int off = 16; off > 0; off >>= 1) {
+          s += __shfl_xor_sync(0xffffffffu, s, off);
+        }
+        if (lane == 0) {
+          const float wq = w != nullptr ? w[j * gpb + q] : 1.0f;
+          sc_s[q] = fmaxf(0.0f,
+                          1.0f - t * lam1 * wq / fmaxf(sqrtf(s), 1e-30f));
+        }
+      }
+      __syncthreads();
+      for (int b = tid; b < B; b += blockDim.x) {
+        const int k = j * B + b;
+        float xn = dx_s[b] * sc_s[b / gsize];
+        if (mask != nullptr && mask[k] == 0) xn = 0.0f;
+        dx_s[b] = xn - xj_s[b];
+        if (c == 0) x_out[k] = xn;
+      }
     }
     __syncthreads();
 
@@ -133,7 +179,7 @@ sweep_kernel(const float* __restrict__ A_t, const float* __restrict__ x_in,
 }
 
 size_t smem_bytes(int B, int rows) {
-  return sizeof(float) * ((size_t)B * rows + rows + B);
+  return sizeof(float) * ((size_t)B * rows + rows + 3 * (size_t)B);
 }
 
 }  // namespace
@@ -173,22 +219,24 @@ int cot_sweep_grid(int B, int m, int* grid_out) {
 }
 
 // One sweep.  x_out / r_out must not alias x_in; partials holds
-// 2 * grid * B floats.  mask may be null (every coordinate kept).
+// 2 * grid * B floats.  mask may be null (every coordinate kept), and so
+// may the group weights w (n / gsize,).
 int cot_sweep_t(const float* A_t, const float* x_in, const float* r_in,
-                const float* steps, const uint8_t* mask, float* x_out,
-                float* r_out, float* partials, int n_blocks, int B, int m,
-                float lam1, float lam2, int kind, int grid,
-                cudaStream_t stream) {
+                const float* steps, const uint8_t* mask, const float* w,
+                float* x_out, float* r_out, float* partials, int n_blocks,
+                int B, int m, int gsize, float lam1, float lam2, int kind,
+                int grid, cudaStream_t stream) {
   int rows = (m + grid - 1) / grid;
   size_t smem = smem_bytes(B, rows);
   cudaError_t err = cudaFuncSetAttribute(
       sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  void* args[] = {(void*)&A_t,   (void*)&x_in,  (void*)&r_in,
-                  (void*)&steps, (void*)&mask,  (void*)&x_out,
-                  (void*)&r_out, (void*)&partials, (void*)&n_blocks,
-                  (void*)&B,     (void*)&m,     (void*)&rows,
-                  (void*)&lam1,  (void*)&lam2,  (void*)&kind};
+  void* args[] = {(void*)&A_t,      (void*)&x_in,     (void*)&r_in,
+                  (void*)&steps,    (void*)&mask,     (void*)&w,
+                  (void*)&x_out,    (void*)&r_out,    (void*)&partials,
+                  (void*)&n_blocks, (void*)&B,        (void*)&m,
+                  (void*)&rows,     (void*)&gsize,    (void*)&lam1,
+                  (void*)&lam2,     (void*)&kind};
   err = cudaLaunchCooperativeKernel((void*)sweep_kernel, dim3(grid),
                                     dim3(kThreads), args, smem, stream);
   if (err != cudaSuccess) return (int)err;

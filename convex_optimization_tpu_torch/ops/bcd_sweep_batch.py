@@ -30,8 +30,11 @@ import torch
 
 from convex_optimization_tpu_torch.models.penalties import Penalty
 from convex_optimization_tpu_torch.ops import _build
-from convex_optimization_tpu_torch.ops.bcd_sweep import _KIND_CODE
 from convex_optimization_tpu_torch.ops.matvec import _check, _on_cuda
+
+#: the penalties K5 computes on the card (its group prox comes with the
+#: group lambda path, ROADMAP queue 1, item 8)
+_KIND_CODE = {"l1": 0, "nonneg_l1": 1}
 
 #: most path points one batched launch carries (K5-K7 keep L accumulators
 #: per thread in registers, sized for this)

@@ -3,9 +3,13 @@ duality-gap check every ``gap_every`` sweeps.
 
 Counterpart of ``convex_optimization_tpu/solvers/bcd.py`` (its ``A_t``
 branch).  The JAX package runs the whole solve as one jitted while_loop;
-here the loop is Python on the host and the device work is one K1 launch
+here the loop is Python on the host and the device work is one sweep launch
 per sweep plus, per check, a K2 residual refresh and a K3 witness.  The
 host syncs once per check, to read the gap that decides whether to go on.
+
+The sweep is K1 where its shared-memory tile fits and K9, which streams
+the block, otherwise (``pick_sweep``): the JAX package's order too, from
+the VMEM-resident kernel to the tiled one (its ``solvers/bcd.py:80-120``).
 """
 
 from __future__ import annotations
@@ -13,8 +17,20 @@ from __future__ import annotations
 import torch
 
 from convex_optimization_tpu_torch.core.problem import Problem
-from convex_optimization_tpu_torch.ops.bcd_sweep import block_steps, sweep_t
+from convex_optimization_tpu_torch.ops import _build
+from convex_optimization_tpu_torch.ops.bcd_sweep import (
+    H100_SMS,
+    block_steps,
+    sweep_grid,
+    sweep_route,
+    sweep_t,
+)
 from convex_optimization_tpu_torch.ops.bcd_sweep_ref import bcd_sweep_ref
+from convex_optimization_tpu_torch.ops.bcd_sweep_tiled import (
+    copy_width,
+    sweep_tiled_t,
+    tiled_plan,
+)
 from convex_optimization_tpu_torch.ops.matvec import ax_minus_b_t, neg_at_r_t
 from convex_optimization_tpu_torch.solvers.common import (
     SolverConfig,
@@ -47,6 +63,28 @@ def pick_block_size(n: int, target: int = 256, *,
     return best
 
 
+def pick_sweep(device: torch.device, B: int, m: int):
+    """``sweep_t`` (K1) where its tile fits in shared memory, else
+    ``sweep_tiled_t`` (K9); a CPU problem routes as an H100 would (both
+    plain versions are the same sweep)."""
+    sms = (torch.cuda.get_device_properties(device).multi_processor_count
+           if device.type == "cuda" else H100_SMS)
+    return sweep_t if sweep_route(B, m, sms) == "k1" else sweep_tiled_t
+
+
+def prepare_sweep(A_t: torch.Tensor) -> None:
+    """On a card: build the kernels and size the routed sweep's launch, so
+    neither lands inside a timed solve (raises when no sweep fits)."""
+    if A_t.device.type != "cuda":
+        return
+    _build.load()
+    nb, B, m = A_t.shape
+    if pick_sweep(A_t.device, B, m) is sweep_t:
+        sweep_grid(A_t.device, B, m)
+    else:
+        tiled_plan(A_t.device, B, m, copy_width(A_t))
+
+
 def _continue(s: SolveState, cfg: SolverConfig) -> bool:
     go = s.k < cfg.max_iters and s.rel_gap > cfg.tol
     if cfg.stall_checks > 0:
@@ -60,9 +98,10 @@ def bcd(problem: Problem, block_L: torch.Tensor, state: SolveState,
     ``stall_checks`` checks without a new best.  block_L holds per-block
     ||A_j||_2^2 (no lam2); B = n / len(block_L).
 
-    cfg.use_pallas: sweeps, refresh and witness go through K1, K2, K3
-    (kernels for CUDA tensors, their plain versions for CPU tensors);
-    otherwise the plain reference sweep and matvecs."""
+    cfg.use_pallas: sweeps, refresh and witness go through K1 or K9
+    (``pick_sweep``), K2, K3 (kernels for CUDA tensors, their plain
+    versions for CPU tensors); otherwise the plain reference sweep and
+    matvecs."""
     n_blocks = block_L.shape[0]
     B = problem.n // n_blocks
     # lam1 as a Python float: read once here, not once per launch
@@ -71,10 +110,11 @@ def bcd(problem: Problem, block_L: torch.Tensor, state: SolveState,
 
     if cfg.use_pallas:
         steps = block_steps(block_L, lam2, cfg.step_scale)
+        sweep_fn = pick_sweep(problem.device, B, problem.m)
 
         def sweep(st: SolveState):
-            return sweep_t(A_t, st.x, st.r, steps, st.keep_mask,
-                           problem.penalty, lam2)
+            return sweep_fn(A_t, st.x, st.r, steps, st.keep_mask,
+                            problem.penalty, lam2)
 
         def refresh_and_check(s: SolveState) -> SolveState:
             # exact residual refresh once per check pins the drift of the
@@ -103,4 +143,5 @@ def bcd(problem: Problem, block_L: torch.Tensor, state: SolveState,
     return state
 
 
-__all__ = ["bcd", "pick_block_size", "init_state"]
+__all__ = ["bcd", "pick_block_size", "pick_sweep", "prepare_sweep",
+           "init_state"]

@@ -22,11 +22,7 @@ import torch
 
 from convex_optimization_tpu_torch.core.objective import lambda_max_t
 from convex_optimization_tpu_torch.core.problem import Problem
-from convex_optimization_tpu_torch.ops import _build
-from convex_optimization_tpu_torch.ops.bcd_sweep import (
-    pick_block_size_t,
-    sweep_grid,
-)
+from convex_optimization_tpu_torch.ops.bcd_sweep import pick_block_size_t
 from convex_optimization_tpu_torch.ops.matvec import (
     ax_minus_b_t,
     block_power_t,
@@ -127,10 +123,8 @@ def _sequential_path(problem: Problem, cfg: SolverConfig,
         bs = bcd_mod.pick_block_size(problem.n, cfg.block_size,
                                      multiple_of=multiple)
     problem = problem.with_block(bs)
-    if cfg.use_pallas and problem.device.type == "cuda":
-        _build.load()
-        if problem.penalty.kind != "group_l2":
-            sweep_grid(problem.device, bs, problem.m)
+    if cfg.use_pallas:
+        bcd_mod.prepare_sweep(problem.A_t)
     block_L = (block_power_t(problem.A_t) if cfg.use_pallas
                else block_power_t_plain(problem.A_t))
 

@@ -1,17 +1,20 @@
 """f64 support polish with a full-problem certificate.
 
-Counterpart of ``polish_support`` in ``convex_optimization_tpu/solvers/
-polish.py`` (l1 and nonneg_l1; ``_polish_support_group`` comes with
-ROADMAP queue 1, item 8).  The f32 solve has a relative-gap floor of a few
-1e-6; to certify 1e-6 the solve finishes on the host in float64:
+Counterpart of ``polish_support`` and ``_polish_support_group`` in
+``convex_optimization_tpu/solvers/polish.py``.  The f32 solve has a
+relative-gap floor of a few 1e-6; to certify 1e-6 the solve finishes on the
+host in float64:
 
-  1. restrict to the f32 solution's support S and gather those columns;
-  2. cyclic f64 coordinate descent on them (``_cd64``, native when the
-     library builds);
+  1. restrict to the f32 solution's support S and gather those columns
+     (for group_l2: the support's whole groups);
+  2. cyclic f64 coordinate descent on them (``_cd64``; block coordinate
+     descent over groups, ``_cd64_group``; native when the library
+     builds);
   3. certify on the FULL problem with a conservative dual norm: exact f64
      on the gathered columns, the device's f32 witness plus a rounding
-     margin gamma * ||A_j|| * ||r|| on every other column.  The margin can
-     only inflate the gap, so a certificate that passes is sound;
+     margin gamma * ||A_j|| * ||r|| on every other column (for a group, the
+     norm of those per-column bounds).  The margin can only inflate the
+     gap, so a certificate that passes is sound;
   4. if it misses tol, refine near-boundary columns exactly, then expand S
      and repeat.
 
@@ -45,21 +48,35 @@ class PolishResult(NamedTuple):
     kept: int              # columns in the final support set
     iterations: int        # f64 CD sweeps
     wall_time_s: float
+    gather_s: float = 0.0  # seconds spent gathering the support's columns
 
 
 class _NpPenalty:
-    """NumPy twin of the l1 / nonneg_l1 Penalty (f64, host-side)."""
+    """NumPy twin of the Penalty (f64, host-side); group_l2 over
+    ``ngroups`` contiguous equal groups with weights ``w`` (ones when
+    None)."""
 
-    def __init__(self, kind: str, lam1: float):
-        self.kind, self.lam1 = kind, lam1
+    def __init__(self, kind: str, lam1: float, ngroups: int = 0,
+                 weights: np.ndarray | None = None):
+        self.kind, self.lam1, self.ngroups = kind, lam1, ngroups
+        self.w = None
+        if kind == "group_l2":
+            self.w = (np.ones(ngroups) if weights is None
+                      else np.asarray(weights, np.float64))
 
     def value(self, x):
+        if self.kind == "group_l2":
+            gn = np.linalg.norm(x.reshape(self.ngroups, -1), axis=1)
+            return self.lam1 * (self.w * gn).sum()
         return self.lam1 * np.abs(x).sum()
 
     def dual_norm(self, z):
         if self.kind == "l1":
             return np.max(np.abs(z)) / self.lam1
-        return max(np.max(z), 0.0) / self.lam1
+        if self.kind == "nonneg_l1":
+            return max(np.max(z), 0.0) / self.lam1
+        gn = np.linalg.norm(z.reshape(self.ngroups, -1), axis=1)
+        return np.max(gn / self.w) / self.lam1
 
 
 def _gap_from_parts(r, b, lam2, pen, x, z):
@@ -179,15 +196,106 @@ def _cd64(As32, b, lam2, pen_s, xs, tol, max_sweeps, gap_every=2,
     return xs, keep_idx, sweeps, rel, gap, primal, r
 
 
+def _cd64_group(As32, b, lam2, pen_s, xs, tol, max_sweeps, gap_every=2,
+                rescreen: bool = True):
+    """f64 block coordinate descent over GROUPS on the compacted
+    group-lasso problem: one prox-gradient step per group per visit with
+    the group's own Lipschitz constant (an 8-step f32-data power
+    iteration, inflated 2 %), Gauss-Seidel residual updates, the slab kept
+    f32 and each group read in f64.  Returns the same tuple as ``_cd64``;
+    rescreen drops whole zero groups by the gap-safe group sphere (sound:
+    the caller recomputes the full certificate)."""
+    m, width = As32.shape
+    ng = pen_s.ngroups
+    gsize = width // ng
+    lam1 = pen_s.lam1
+    w = np.ascontiguousarray(pen_s.w, np.float64)
+    keep_idx = np.arange(width)
+    xs = np.array(xs, np.float64, copy=True)
+    r = np.ascontiguousarray(_residual_sparse32(As32, xs, b))
+    col_sq = np.einsum("ij,ij->j", As32, As32, dtype=np.float64)
+    L = native.group_power_l(As32, gsize, iters=8, safety=1.02, lam2=lam2)
+    if L is None:
+        L = np.empty(ng)
+        for g in range(ng):
+            Ag = As32[:, g * gsize:(g + 1) * gsize]
+            v = (1.0 + 0.01 * np.arange(gsize) / gsize).astype(np.float32)
+            v /= np.linalg.norm(v)
+            for _ in range(8):
+                u = Ag.T @ (Ag @ v)
+                v = u / max(np.linalg.norm(u), 1e-30)
+            u = Ag @ v
+            L[g] = 1.02 * float(u.astype(np.float64) @ u) + lam2
+    # an all-zero group with lam2 == 0 has L = 0: keep the prox finite
+    L = np.maximum(L, 1e-30)
+    gbuf = np.empty((m, gsize), np.float64, order="F")
+    sweeps = 0
+    rel = gap = primal = np.inf
+    prev_primal = np.inf
+    while sweeps < max_sweeps:
+        if native.cd64_group_sweeps(As32, gsize, xs, r,
+                                    np.ascontiguousarray(L), w,
+                                    float(lam1), float(lam2), gap_every):
+            sweeps += gap_every
+        else:
+            for _ in range(gap_every):
+                for g in range(ng):
+                    sl = slice(g * gsize, (g + 1) * gsize)
+                    np.copyto(gbuf, As32[:, sl])
+                    xg = xs[sl]
+                    v = xg - (gbuf.T @ r + lam2 * xg) / L[g]
+                    nv = float(np.linalg.norm(v))
+                    scale = max(0.0, 1.0 - lam1 * w[g]
+                                / (L[g] * max(nv, 1e-300)))
+                    dx = scale * v - xg
+                    if np.any(dx):
+                        r += gbuf @ dx
+                        xs[sl] = scale * v
+                sweeps += 1
+        r = _residual_sparse32(As32, xs, b)     # exact refresh
+        zs = _gemv_t_mixed(As32, r, lam2, xs)
+        gap, primal, rel, alpha = _gap_from_parts(r, b, lam2, pen_s, xs, zs)
+        if rel <= tol:
+            break
+        # the power estimate is a lower bound of lam_max(Ag^T Ag): a primal
+        # that stops decreasing between checks means a step too long, so
+        # halve every step (convergence only; the certificate never uses L)
+        if primal > prev_primal * (1.0 + 1e-12):
+            L = L * 2.0
+        prev_primal = min(prev_primal, primal)
+        if rescreen and ng > 1:
+            radius = np.sqrt(2.0 * max(gap, 0.0))
+            gn = np.linalg.norm((alpha * zs).reshape(ng, gsize), axis=1)
+            gcol = np.sqrt(col_sq.reshape(ng, gsize).sum(axis=1)
+                           + lam2 * gsize)
+            gdrop = gn + radius * gcol < lam1 * w
+            gdrop &= ~(xs.reshape(ng, gsize).any(axis=1))
+            if gdrop.any():
+                gkeep = ~gdrop
+                keep = np.repeat(gkeep, gsize)
+                As32, _ = _gather_cols(As32, np.nonzero(keep)[0],
+                                       As32.dtype)
+                xs = np.ascontiguousarray(xs[keep])
+                col_sq = col_sq[keep]
+                keep_idx = keep_idx[keep]
+                L, w = L[gkeep], np.ascontiguousarray(w[gkeep])
+                ng = int(gkeep.sum())
+                pen_s = _NpPenalty("group_l2", lam1, ng, w)
+                # dropped groups were identically 0: r is unchanged
+    return xs, keep_idx, sweeps, rel, gap, primal, r
+
+
 class _Ticker:
     """Per-phase wall, this-thread CPU and minor-fault deltas on stderr
     (verbose only): cpu ~= wall with many faults means a page-fault storm,
-    cpu << wall means the thread was descheduled."""
+    cpu << wall means the thread was descheduled.  ``totals`` sums the
+    wall seconds by label (the text before any "(")."""
 
     def __init__(self, verbose: bool):
         self.verbose = verbose
         self.t = time.perf_counter()
         self.prev = self._usage()
+        self.totals: dict = {}
 
     @staticmethod
     def _usage():
@@ -196,6 +304,8 @@ class _Ticker:
 
     def __call__(self, label: str) -> None:
         now, usage = time.perf_counter(), self._usage()
+        key = label.split("(", 1)[0]
+        self.totals[key] = self.totals.get(key, 0.0) + now - self.t
         if self.verbose:
             print(f"  polish[{label}] +{now - self.t:.2f}s "
                   f"(cpu +{usage[0] - self.prev[0]:.2f}s "
@@ -228,12 +338,16 @@ def polish_support(problem, x, *, tol: float = 1e-6,
     """Support-restricted f64 refinement certified on the full problem
     (module docstring).  ``A_host``/``b_host``: host copies of the data
     (A column-major f32), so columns are gathered without device
-    transfers.  ``x`` may be a tensor or an array."""
+    transfers.  ``x`` may be a tensor or an array.  group_l2 goes to
+    ``_polish_support_group``."""
     kind = problem.penalty.kind
+    if kind == "group_l2":
+        return _polish_support_group(
+            problem, x, tol=tol, max_iters=max_iters, gap_every=gap_every,
+            A_host=A_host, b_host=b_host, max_expand=max_expand,
+            verbose=verbose)
     if kind not in ("l1", "nonneg_l1"):
-        raise NotImplementedError(
-            f"polish_support for {kind!r} is not ported yet "
-            "(ROADMAP queue 1, item 8)")
+        raise ValueError(f"unknown penalty kind {kind!r}")
     t0 = time.perf_counter()
     tick = _Ticker(verbose)
     m, n = problem.m, problem.n
@@ -338,4 +452,124 @@ def polish_support(problem, x, *, tol: float = 1e-6,
         x=x_full, rel_gap=float(rel), gap=float(gap), primal=float(primal),
         kept=int(len(S)), iterations=k,
         wall_time_s=time.perf_counter() - t0,
+        gather_s=tick.totals.get("gather", 0.0),
+    )
+
+
+def _polish_support_group(problem, x, *, tol, max_iters, gap_every,
+                          A_host, b_host, max_expand,
+                          verbose) -> PolishResult:
+    """``polish_support`` for group_l2, with GROUPS as the unit: the f64
+    solve runs on the support's groups (plus expansions) and the full
+    certificate takes, per group outside them, the norm of the per-column
+    bounds |z_j| + gamma ||A_j|| ||r|| >= ||z_g|| (exact f64 on the
+    gathered groups)."""
+    t0 = time.perf_counter()
+    tick = _Ticker(verbose)
+    m, n = problem.m, problem.n
+    lam1 = float(problem.penalty.lam1)
+    lam2 = float(problem.lam2)
+    ngroups = problem.penalty.ngroups
+    gsize = n // ngroups
+    weights = problem.penalty.weights
+    w = (np.ones(ngroups) if weights is None
+         else weights.detach().cpu().numpy().astype(np.float64))
+    b = np.asarray(problem.b.cpu().numpy() if b_host is None else b_host,
+                   dtype=np.float64)
+    x_np = (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+            else np.asarray(x)).astype(np.float64)
+    G = np.nonzero(x_np.reshape(ngroups, gsize).any(axis=1))[0]
+    if len(G) == 0:
+        G = np.array([0])
+
+    def columns(idx):
+        if A_host is None:
+            return _device_columns(problem, idx), "device"
+        return _gather_cols(A_host, idx, np.float32)
+
+    def group_cols(groups):
+        return (groups[:, None] * gsize + np.arange(gsize)[None, :]) \
+            .reshape(-1)
+
+    eps = float(np.finfo(np.float32).eps)
+    gamma = witness_gamma(m)
+    cn_safe = _col_norms64(problem) * (1.0 + 4 * eps) + 1e-12
+    zeros_n = torch.zeros((n,), dtype=torch.float32, device=problem.device)
+    tick("setup")
+
+    best = None
+    for _round in range(max_expand + 1):
+        cols = group_cols(G)
+        As, path = columns(cols)
+        tick(f"gather(|G|={len(G)},{path})")
+        pen_s = _NpPenalty("group_l2", lam1, len(G), w[G])
+        xs, sub_idx, k, _, _, _, r = _cd64_group(
+            As, b, lam2, pen_s, x_np[cols], tol * 0.5, max_iters,
+            gap_every=gap_every)
+        tick(f"cd64_group(sweeps={k},kept={len(sub_idx)})")
+
+        # full-problem certificate: f32 K3 witness + margin per column,
+        # aggregated per group; exact f64 on the gathered columns.  The
+        # group CD may have dropped zero groups: scatter through sub_idx
+        r32 = torch.from_numpy(r.astype(np.float32)).to(problem.device)
+        z_f32 = neg_at_r_t(problem.A_t, r32, zeros_n, 0.0) \
+            .cpu().numpy().astype(np.float64)
+        tick("device-witness")
+        x_cols = np.zeros(len(cols), np.float64)
+        x_cols[sub_idx] = xs
+        zbar = np.abs(z_f32) + gamma * cn_safe * float(np.linalg.norm(r))
+        zbar[cols] = np.abs(_gemv_t_mixed(As, r, lam2, x_cols))
+        ub_g = np.sqrt((zbar ** 2).reshape(ngroups, gsize).sum(axis=1))
+
+        def certify(ub_now):
+            # ub_now bounds each group's ||z_g||: the feasibility cap
+            # lam1 / max(ub / w) is conservative
+            feas = lam1 / max(float(np.max(ub_now / w)), 1e-300)
+            aug = float(r @ r + lam2 * (x_cols @ x_cols))
+            alpha = min(max(float(-(r @ b)) / max(aug, 1e-300), 0.0), feas)
+            primal = 0.5 * aug + float(pen_s.value(x_cols))
+            dual = alpha * float(-(r @ b)) - 0.5 * alpha * alpha * aug
+            gap = primal - dual
+            return gap / max(abs(primal), np.finfo(np.float64).tiny), gap, \
+                primal
+
+        rel, gap, primal = certify(ub_g)
+        if rel > tol:
+            # the margin may be all that pushes near-boundary groups over:
+            # replace their bounds with exact f64 values
+            near = np.setdiff1d(
+                np.nonzero(ub_g >= lam1 * w * (1.0 - 1e-6))[0], G)
+            if len(near) > 64:
+                near = near[np.argsort(-(ub_g / w)[near])[:64]]
+            if len(near):
+                A_near, _ = columns(group_cols(near))
+                z_near = np.abs(_gemv_t_mixed(A_near, r))
+                tick(f"near-exact(|near|={len(near)})")
+                ub_g[near] = np.sqrt(
+                    (z_near ** 2).reshape(len(near), gsize).sum(axis=1))
+                rel, gap, primal = certify(ub_g)
+        if best is None or rel < best[3]:
+            best = (x_cols.copy(), cols.copy(), k, rel, gap, primal)
+        if rel <= tol:
+            break
+        # expand with the violating / nearest-boundary groups
+        outside = np.setdiff1d(
+            np.nonzero(ub_g >= lam1 * w * (1.0 - 1e-9))[0], G)
+        if len(outside) == 0:
+            cand = np.setdiff1d(np.argsort(-(ub_g / w))[:2 * len(G)], G)
+            if len(cand) == 0:
+                break
+            outside = cand[:max(len(G) // 2, 1)]
+        x_np = np.zeros(n, np.float64)
+        x_np[cols] = x_cols
+        G = np.sort(np.concatenate([G, outside]))
+
+    x_cols, cols, k, rel, gap, primal = best
+    x_full = np.zeros(n, dtype=np.float64)
+    x_full[cols] = x_cols
+    return PolishResult(
+        x=x_full, rel_gap=float(rel), gap=float(gap), primal=float(primal),
+        kept=int(len(cols)), iterations=k,
+        wall_time_s=time.perf_counter() - t0,
+        gather_s=tick.totals.get("gather", 0.0),
     )

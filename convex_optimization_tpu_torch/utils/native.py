@@ -2,8 +2,9 @@
 
 Counterpart of ``convex_optimization_tpu/utils/native.py``, for the entry
 points the port's main path uses: ``gaussian`` (threaded normal fill for
-data generation), ``cd64_sweeps``, ``gather_cols``, ``atr_mixed`` and
-``ax_sparse`` (the f64 polish).  The same C++ source is built with g++ at
+data generation), ``cd64_sweeps``, ``cd64_group_sweeps``,
+``group_power_l``, ``gather_cols``, ``atr_mixed`` and ``ax_sparse`` (the
+f64 polish).  The same C++ source is built with g++ at
 first use into ``build/torch_native/`` (named by the source's and the
 host's hash, so a stale or foreign build is never loaded) and checked
 against the ABI version below.  Every entry point has a NumPy fallback for
@@ -87,6 +88,14 @@ def _declare(lib) -> None:
     lib.co_atr_mixed.restype = None
     lib.co_ax_sparse.argtypes = [_F, _I64, _I64, _D, _D, _D]
     lib.co_ax_sparse.restype = None
+    lib.co_cd64_group_sweeps.argtypes = [_F, _I64, _I64, _I64, _D, _D, _D,
+                                         _D, ctypes.c_double,
+                                         ctypes.c_double, ctypes.c_int, _D]
+    lib.co_cd64_group_sweeps.restype = None
+    lib.co_group_power_l.argtypes = [_F, _I64, _I64, _I64, ctypes.c_int,
+                                     ctypes.c_double, ctypes.c_double, _D,
+                                     _D]
+    lib.co_group_power_l.restype = None
 
 
 def _load():
@@ -163,6 +172,43 @@ def cd64_sweeps(As32: np.ndarray, xs: np.ndarray, r: np.ndarray,
                        col_sq.ctypes.data_as(_D), float(lam1), float(lam2),
                        1 if nonneg else 0, int(sweeps))
     return True
+
+
+def cd64_group_sweeps(As32: np.ndarray, gsize: int, xs: np.ndarray,
+                      r: np.ndarray, L: np.ndarray, w: np.ndarray,
+                      lam1: float, lam2: float, sweeps: int) -> bool:
+    """Group analog of cd64_sweeps: ``sweeps`` Gauss-Seidel passes over
+    contiguous gsize-wide groups (per-group Lipschitz L, weights w),
+    updating xs and r in place; False when the caller must run NumPy."""
+    lib = _load()
+    if (not _f32_slab_ok(lib, As32, xs, r, L, w)
+            or As32.shape[1] % gsize != 0):
+        return False
+    m, width = As32.shape
+    scratch = np.empty(2 * gsize, np.float64)
+    lib.co_cd64_group_sweeps(As32.ctypes.data_as(_F), m, width, gsize,
+                             xs.ctypes.data_as(_D), r.ctypes.data_as(_D),
+                             L.ctypes.data_as(_D), w.ctypes.data_as(_D),
+                             float(lam1), float(lam2), int(sweeps),
+                             scratch.ctypes.data_as(_D))
+    return True
+
+
+def group_power_l(As32: np.ndarray, gsize: int, iters: int, safety: float,
+                  lam2: float) -> np.ndarray | None:
+    """Per-group block Lipschitz safety * lam_max(Ag^T Ag) + lam2 by
+    ``iters`` f64 power iterations from the tilted ones start; None when
+    the caller must run NumPy."""
+    lib = _load()
+    if not _f32_slab_ok(lib, As32) or As32.shape[1] % gsize != 0:
+        return None
+    m, width = As32.shape
+    L = np.empty(width // gsize, np.float64)
+    scratch = np.empty(gsize + m, np.float64)
+    lib.co_group_power_l(As32.ctypes.data_as(_F), m, width, gsize,
+                         int(iters), float(safety), float(lam2),
+                         L.ctypes.data_as(_D), scratch.ctypes.data_as(_D))
+    return L
 
 
 def gather_cols(A: np.ndarray, idx: np.ndarray, dtype) -> np.ndarray | None:

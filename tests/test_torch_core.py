@@ -110,7 +110,7 @@ def _instance(kind, ngroups, weights, m=64, n=256, lam2=0.2, seed=3):
     jp = co.Problem(A=jnp.asarray(A), b=jnp.asarray(b), penalty=jpen,
                     lam2=lam2)
     tp = problem_from_numpy(A, b, kind, 0.37, lam2, ngroups, weights,
-                            block=32)
+                            block=32, device="cpu")
     return jp, tp, x
 
 
@@ -140,7 +140,7 @@ def test_problem_from_numpy_round_trip():
     G = rng.standard_normal((n, m)).astype(np.float32)
     A = G.T                                    # column-major, as datagen
     b = rng.standard_normal(m).astype(np.float32)
-    p = problem_from_numpy(A, b, "l1", 0.5, block=40)
+    p = problem_from_numpy(A, b, "l1", 0.5, block=40, device="cpu")
     assert p.A_t.shape == (6, 40, m) and p.block == 40
     assert (p.m, p.n) == (m, n) and p.dtype == torch.float32
     # A_t is a view of the transposed host buffer, A a view of A_t
@@ -158,13 +158,13 @@ def test_problem_from_numpy_round_trip():
                                np.linalg.norm(A, axis=0), rtol=1e-6)
     # a C-ordered A is copied once, with the same values
     pc = problem_from_numpy(np.ascontiguousarray(A), b, "nonneg_l1", 0.5,
-                            lam2=0.1, block=40)
+                            lam2=0.1, block=40, device="cpu")
     np.testing.assert_array_equal(pc.A_t.numpy(), p.A_t.numpy())
     assert pc.penalty.kind == "nonneg_l1" and pc.lam2 == 0.1
     with pytest.raises(ValueError):
-        problem_from_numpy(A, b, "l1", 0.5, block=7)
+        problem_from_numpy(A, b, "l1", 0.5, block=7, device="cpu")
     with pytest.raises(ValueError):
-        problem_from_numpy(A.astype(np.float64), b, "l1", 0.5)
+        problem_from_numpy(A.astype(np.float64), b, "l1", 0.5, device="cpu")
     # make_problem: from a tensor, default block = largest divisor <= 128
     mp = make_problem(torch.from_numpy(np.ascontiguousarray(A)),
                       torch.from_numpy(b), 0.5)
@@ -174,7 +174,8 @@ def test_problem_from_numpy_round_trip():
 
 def test_host_instance_matches_jax():
     for kind in ("l1", "nonneg_l1"):
-        inst, A, b = make_lasso_instance_host(7, 64, 320, penalty_kind=kind)
+        inst, A, b = make_lasso_instance_host(7, 64, 320, penalty_kind=kind,
+                                              device="cpu")
         j_inst, jA, jb = j_make_host(7, 64, 320, penalty_kind=kind)
         np.testing.assert_array_equal(A, jA)
         np.testing.assert_array_equal(b, jb)

@@ -1,11 +1,12 @@
-"""The port's CUDA kernels (K1-K7) against their plain PyTorch versions on
-the card.  Every test needs a CUDA card and skips without one.  This file
+"""The port's CUDA kernels (K1-K7, K9) against their plain PyTorch versions
+on the card.  Every test needs a CUDA card and skips without one.  This file
 imports neither jax nor the JAX package, so it runs on a machine without
 them: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
 
 Tolerances: the kernels and the plain versions (cuBLAS matvecs with TF32
 off) sum in different orders in f32, so results differ by rounding only:
-relative 1e-5 for one pass over A (K2, K3, one K1 or K5 sweep, K6, K7),
+relative 1e-5 for one pass over A (K2, K3, one K1, K5 or K9 sweep, K6,
+K7),
 1e-4 for the 48-iteration power estimate (K4).  K5 with a 0/1 row mask
 equals K5 on a masked copy of A bit for bit (torch.equal).
 """
@@ -21,6 +22,10 @@ from convex_optimization_tpu_torch.ops.bcd_sweep import (
     block_steps,
     sweep_t,
     sweep_t_plain,
+)
+from convex_optimization_tpu_torch.ops.bcd_sweep_tiled import (
+    sweep_tiled_t,
+    sweep_tiled_t_plain,
 )
 from convex_optimization_tpu_torch.ops.bcd_sweep_batch import (
     ax_minus_b_batch_t,
@@ -106,6 +111,66 @@ def test_sweep_kernel_matches_plain(cuda, m, n, B, kind):
     assert float(torch.linalg.vector_norm(r_k - r_p)) <= \
         1e-5 * float(torch.linalg.vector_norm(r_p))
     assert bool((x_k[~mask] == 0).all())
+
+
+#: K9 at small shapes and at one K1 refuses (a 2000 x 32 tile: 256 KB)
+TILED_SHAPES = [(256, 1024, 32), (200, 800, 40), (4096, 2000 * 4, 2000)]
+
+
+def _group_penalty(n, B, device, seed=3):
+    """group_l2 with groups of B / 4 (every block holds whole groups) and
+    random weights."""
+    ngroups = 4 * n // B
+    w = np.random.default_rng(seed).uniform(0.5, 2.0, ngroups)
+    return Penalty(lam1=0.05, kind="group_l2", ngroups=ngroups,
+                   weights=torch.as_tensor(w, dtype=torch.float32,
+                                           device=device))
+
+
+def _one_sweep(sweep, plain, p, x, pen, mask):
+    """One sweep of the kernel and of its plain version from (x, A x - b);
+    both must agree to 1e-5 and keep masked coordinates at 0."""
+    r = ax_minus_b_t_plain(p.A_t, x, p.b)
+    steps = block_steps(block_power_t_plain(p.A_t), p.lam2, 0.5)
+    x_k, r_k = sweep(p.A_t, x, r, steps, mask, pen, p.lam2)
+    x_p, r_p = plain(p.A_t, x, r, steps, mask, pen, p.lam2)
+    xs = max(1.0, float(x_p.abs().max()))
+    assert float((x_k - x_p).abs().max()) <= 1e-5 * xs
+    assert float(torch.linalg.vector_norm(r_k - r_p)) <= \
+        1e-5 * float(torch.linalg.vector_norm(r_p))
+    assert float((x_p - x).abs().max()) > 0
+    if mask is not None:
+        assert bool((x_k[~mask] == 0).all())
+
+
+@pytest.mark.parametrize("m,n,B", SHAPES)
+def test_group_sweep_kernel_matches_plain(cuda, m, n, B):
+    p, x = _data(m, n, B, cuda)
+    mask = torch.rand(n, generator=torch.Generator().manual_seed(1)) > 0.05
+    _one_sweep(sweep_t, sweep_t_plain, p, x,
+               _group_penalty(n, B, cuda), mask.to(cuda))
+
+
+@pytest.mark.parametrize("kind", ["l1", "nonneg_l1", "group_l2"])
+@pytest.mark.parametrize("m,n,B", TILED_SHAPES)
+def test_tiled_sweep_kernel_matches_plain(cuda, m, n, B, kind):
+    p, x = _data(m, n, B, cuda)
+    pen = (_group_penalty(n, B, cuda) if kind == "group_l2"
+           else Penalty(lam1=0.05, kind=kind))
+    if kind == "nonneg_l1":
+        x = x.abs()
+    mask = torch.rand(n, generator=torch.Generator().manual_seed(2)) > 0.05
+    _one_sweep(sweep_tiled_t, sweep_tiled_t_plain, p, x, pen, mask.to(cuda))
+    _one_sweep(sweep_tiled_t, sweep_tiled_t_plain, p, x, pen, None)
+
+
+def test_k1_refuses_the_tile_k9_takes(cuda):
+    p, x = _data(4096, 2000 * 4, 2000, cuda)
+    pen = Penalty(lam1=0.05, kind="l1")
+    steps = torch.ones(4, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        sweep_t(p.A_t, x, -p.b, steps, None, pen, 0.0)
+    sweep_tiled_t(p.A_t, x, -p.b, steps, None, pen, 0.0)
 
 
 def _batch(p, L, seed=2):
@@ -211,7 +276,7 @@ def test_batched_path_on_card_matches_cpu(cuda):
     cfg = SolverConfig(tol=1e-6, max_iters=4000, gap_every=10,
                        stall_checks=20)
     inst_c, _, _ = make_lasso_instance_host(3, 64, 256, device=cuda)
-    inst_h, _, _ = make_lasso_instance_host(3, 64, 256)
+    inst_h, _, _ = make_lasso_instance_host(3, 64, 256, device="cpu")
     before = dict(_build.launches)
     res_c = cot.lambda_path(inst_c.problem, cfg, path_len=6)
     res_h = cot.lambda_path(inst_h.problem, cfg, path_len=6)
@@ -237,8 +302,11 @@ def test_wrappers_count_launches(cuda):
     batch_sweep_t(p.A_t, X, R, steps, lam1s, 0.0, Penalty(1.0))
     ax_minus_b_batch_t(p.A_t, X, p.b)
     neg_at_r_batch_t(p.A_t, R, X, 0.0)
+    sweep_t(p.A_t, x, -p.b, steps, None, Penalty(0.05), 0.0)
+    sweep_tiled_t(p.A_t, x, -p.b, steps, None, Penalty(0.05), 0.0)
     for name in ("ax_minus_b_t", "neg_at_r_t", "block_power_t",
-                 "batch_sweep_t", "ax_minus_b_batch_t", "neg_at_r_batch_t"):
+                 "batch_sweep_t", "ax_minus_b_batch_t", "neg_at_r_batch_t",
+                 "sweep_t", "sweep_tiled_t"):
         assert _build.launches[name] == before.get(name, 0) + 1
 
 
@@ -249,9 +317,11 @@ def test_wrappers_reject_bad_operands(cuda):
     with pytest.raises(ValueError):
         neg_at_r_t(p.A_t, p.b.cpu(), x, 0.0)
     group = Penalty(lam1=0.05, kind="group_l2", ngroups=32)
-    with pytest.raises(NotImplementedError):
-        sweep_t(p.A_t, x, -p.b, torch.ones(32, device=cuda), None, group,
-                0.0)
+    # K1 (and K9) take group_l2; K5's group prox is not ported yet
+    sweep_t(p.A_t, x, -p.b, torch.ones(32, device=cuda), None, group, 0.0)
+    with pytest.raises(ValueError, match="whole groups"):
+        sweep_t(p.A_t, x, -p.b, torch.ones(32, device=cuda), None,
+                Penalty(lam1=0.05, kind="group_l2", ngroups=16), 0.0)
     X, R, _, _, lam1s, steps = _batch(p, 2)
     with pytest.raises(NotImplementedError):
         batch_sweep_t(p.A_t, X, R, steps, lam1s, 0.0, group)
@@ -270,10 +340,34 @@ def test_solve_on_card_matches_cpu(cuda):
     kw = dict(block_size=40, gap_every=10, stall_checks=15, tol=1e-6,
               max_iters=20_000)
     inst_c, A, b = make_lasso_instance_host(0, 200, 800, device=cuda)
-    inst_h, _, _ = make_lasso_instance_host(0, 200, 800)
+    inst_h, _, _ = make_lasso_instance_host(0, 200, 800, device="cpu")
     res_c = cot.solve(inst_c.problem, "bcd_pallas", **kw)
     res_h = cot.solve(inst_h.problem, "bcd_pallas", **kw)
     assert abs(res_c.iterations - res_h.iterations) <= 10
     pr = cot.polish_support(inst_c.problem, res_c.x, tol=1e-6, A_host=A,
+                            b_host=b)
+    assert pr.rel_gap <= 1e-6
+
+
+@pytest.mark.parametrize("block_size,kernel", [(200, "sweep_t"),
+                                               (2000, "sweep_tiled_t")])
+def test_group_solve_on_card_routes_and_certifies(cuda, block_size, kernel):
+    """A group lasso (20 groups of 200) solved on the card through K1
+    (B = 200) or K9 (B = 2000, a tile K1 refuses), then the group polish:
+    the routed kernel ran, the other did not, and f64 certifies 1e-6."""
+    import convex_optimization_tpu_torch as cot
+    from convex_optimization_tpu_torch.core.datagen import (
+        make_lasso_instance_host,
+    )
+
+    inst, A, b = make_lasso_instance_host(
+        4, 4096, 4000, penalty_kind="group_l2", ngroups=20, device=cuda)
+    _build.reset_launches()
+    res = cot.solve(inst.problem, "bcd_pallas", block_size=block_size,
+                    tol=1e-6, gap_every=10, stall_checks=15)
+    other = "sweep_t" if kernel == "sweep_tiled_t" else "sweep_tiled_t"
+    assert _build.launches[kernel] == res.iterations > 0
+    assert _build.launches[other] == 0
+    pr = cot.polish_support(inst.problem, res.x, tol=1e-6, A_host=A,
                             b_host=b)
     assert pr.rel_gap <= 1e-6

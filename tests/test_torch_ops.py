@@ -7,7 +7,8 @@ packages as numpy arrays.  Tolerances and why:
     after one sweep, 1e-4 after ten: the f32 sums run in another order, and
     Gauss-Seidel carries each block's rounding into the next;
   * K2 / K3: 1e-5 relative to ||A||_F ||x|| (one f32 pass over A);
-  * K4: rtol 1e-4 (48 power iterations from the same start vector).
+  * K4: rtol 1e-4 (48 power iterations from the same start vector);
+  * K9 sweep: as K1 after one sweep (1e-5).
 """
 
 import jax
@@ -18,6 +19,9 @@ import torch
 
 from convex_optimization_tpu.core.problem import Problem as JProblem
 from convex_optimization_tpu.models.penalties import Penalty as JPenalty
+from convex_optimization_tpu.ops.bcd_sweep_pallas_tiled import (
+    bcd_sweep_pallas_tiled,
+)
 from convex_optimization_tpu.ops.bcd_sweep_vpu import (
     bcd_sweep_vpu,
     to_tblock_major as j_to_tblock_major,
@@ -31,11 +35,21 @@ from convex_optimization_tpu.ops.matvec_pallas import (
 from convex_optimization_tpu_torch.core.problem import problem_from_numpy
 from convex_optimization_tpu_torch.ops import _build
 from convex_optimization_tpu_torch.ops.bcd_sweep import (
+    H100_SMS,
+    MAX_SMEM_BYTES,
     block_steps,
+    k1_smem_bytes,
+    sweep_route,
     sweep_t,
     to_tblock_major,
 )
 from convex_optimization_tpu_torch.ops.bcd_sweep_ref import bcd_sweep_ref
+from convex_optimization_tpu_torch.ops.bcd_sweep_tiled import (
+    sweep_tiled_t,
+    sweep_tiled_t_plain,
+)
+from convex_optimization_tpu_torch.solvers.bcd import pick_sweep
+from convex_optimization_tpu_torch.utils import native
 from convex_optimization_tpu_torch.ops.matvec import (
     ax_minus_b_t,
     block_power_t,
@@ -73,7 +87,7 @@ def _pair(A, b, kind, lam1, lam2, B, ngroups=0, weights=None):
                    weights=None if weights is None else jnp.asarray(weights))
     jp = JProblem(A=jnp.asarray(A), b=jnp.asarray(b), penalty=pen, lam2=lam2)
     tp = problem_from_numpy(A, b, kind, lam1, lam2, ngroups, weights,
-                            block=B)
+                            block=B, device="cpu")
     return jp, tp
 
 
@@ -141,6 +155,55 @@ def test_sweep_plain_group_l2_matches_jax_kernel(lam2):
     _sweep_close(xt, rt, xj, rj, 1e-5)
 
 
+@pytest.mark.parametrize("kind", ["l1", "nonneg_l1", "group_l2"])
+@pytest.mark.parametrize("masked,step_scale,lam2", [(True, 1.0, 0.0),
+                                                    (False, 0.5, 0.1)])
+def test_tiled_sweep_plain_matches_jax_kernel(kind, masked, step_scale,
+                                              lam2):
+    """K9's wrapper (its plain version on the CPU) against the JAX
+    package's m-tiled Pallas sweep in interpret mode, one sweep."""
+    m, n, B = 64, 512, 128
+    A, b, x, mask = _arrays(m, n, seed=11, kind=kind)
+    ngroups, w = 0, None
+    atb = np.abs(A.T @ b)
+    if kind == "group_l2":
+        ngroups = 16
+        w = np.random.default_rng(12).uniform(0.5, 2.0, ngroups)
+        atb = np.linalg.norm((A.T @ b).reshape(ngroups, -1), axis=1) / w
+    jp, tp = _pair(A, b, kind, 0.1 * float(atb.max()), lam2, B, ngroups, w)
+    L = block_power_t(tp.A_t)
+    keep = mask if masked else None
+    r = A @ x - b
+    xj, rj = bcd_sweep_pallas_tiled(
+        jp, jnp.asarray(x), jnp.asarray(r), jnp.asarray(L.numpy()),
+        step_scale=step_scale,
+        keep_mask=None if keep is None else jnp.asarray(keep),
+        interpret=True)
+    args = (tp.A_t, _t(x), _t(r), block_steps(L, lam2, step_scale),
+            None if keep is None else _t(keep), tp.penalty, lam2)
+    xt, rt = sweep_tiled_t(*args)
+    _sweep_close(xt, rt, xj, rj, 1e-5)
+    xp, rp = sweep_tiled_t_plain(*args)
+    assert torch.equal(xt, xp) and torch.equal(rt, rp)
+    assert float((xt - _t(x)).abs().max()) > 0      # the sweep moved x
+    if masked:
+        assert bool((xt[~_t(mask)] == 0).all())
+
+
+@pytest.mark.parametrize("B,m,route", [(80, 10_000, "k1"),
+                                       (80, 100_000, "k9"),
+                                       (200, 20_000, "k1"),
+                                       (2000, 20_000, "k9")])
+def test_sweep_route_fit_rule(B, m, route):
+    """K1 where its (B x ceil(m / 132)) tile fits the 227 KB of shared
+    memory, K9 otherwise; a CPU problem routes the same way."""
+    assert sweep_route(B, m, H100_SMS, MAX_SMEM_BYTES) == route
+    fits = k1_smem_bytes(B, m, H100_SMS) <= MAX_SMEM_BYTES
+    assert fits == (route == "k1")
+    want = sweep_t if route == "k1" else sweep_tiled_t
+    assert pick_sweep(torch.device("cpu"), B, m) is want
+
+
 @pytest.mark.parametrize("B", [32, 40, 80])
 def test_matvec_plain_match_jax_kernels(B):
     m, n = 200, 960
@@ -197,6 +260,8 @@ def test_launch_counters_stay_zero_on_cpu():
     r = ax_minus_b_t(tp.A_t, _t(x), tp.b)
     neg_at_r_t(tp.A_t, r, _t(x), 0.0)
     sweep_t(tp.A_t, _t(x), r, block_steps(L, 0.0), _t(mask), tp.penalty, 0.0)
+    sweep_tiled_t(tp.A_t, _t(x), r, block_steps(L, 0.0), _t(mask),
+                  tp.penalty, 0.0)
     assert sum(_build.launches.values()) == 0
 
 
@@ -229,29 +294,59 @@ def test_jax_runs_on_cpu_here():
     assert jax.default_backend() == "cpu"
 
 
+class _FakeLib:
+    """Records what a ``_declare`` sets on each entry point."""
+
+    def __getattr__(self, name):
+        import types
+
+        fn = types.SimpleNamespace()
+        object.__setattr__(self, name, fn)
+        return fn
+
+
+def _c_params(paths, sig):
+    """{entry point: number of parameters} of the C functions in ``paths``
+    whose signature matches ``sig``."""
+    found = {}
+    for path in paths:
+        with open(path) as f:
+            for name, params in sig.findall(f.read()):
+                found[name] = len([p for p in params.split(",") if p.strip()])
+    return found
+
+
 def test_ctypes_declarations_match_the_c_entry_points():
     """Every extern "C" entry point in csrc/ is declared to ctypes with as
     many argument types as its C signature has parameters (ctypes passes
     surplus arguments through unchecked, so a missing one is a crash on the
     card, not an error)."""
     import re
-    import types
 
-    class FakeLib:
-        def __getattr__(self, name):
-            fn = types.SimpleNamespace()
-            object.__setattr__(self, name, fn)
-            return fn
-
-    lib = FakeLib()
+    lib = _FakeLib()
     _build._declare(lib)
-    sig = re.compile(r"^(?:int|const char\*) (cot_\w+)\(([^)]*)\)\s*\{",
-                     re.M)
-    found = {}
-    for src in _build.sources():
-        with open(src) as f:
-            for name, params in sig.findall(f.read()):
-                found[name] = len([p for p in params.split(",") if p.strip()])
-    assert len(found) >= 10
+    found = _c_params(_build.sources(), re.compile(
+        r"^(?:int|const char\*) (cot_\w+)\(([^)]*)\)\s*\{", re.M))
+    assert len(found) >= 12
+    assert {"cot_sweep_t", "cot_sweep_tiled_plan",
+            "cot_sweep_tiled_t"} <= set(found)
     for name, n_params in found.items():
         assert len(getattr(lib, name).argtypes) == n_params, name
+
+
+def test_native_declarations_match_the_c_entry_points():
+    """The same count for every native host entry point the port binds
+    (``utils/native._declare``) against ``native/co_native.cpp``."""
+    import os
+    import re
+
+    lib = _FakeLib()
+    native._declare(lib)
+    declared = {name for name, fn in vars(lib).items()
+                if hasattr(fn, "argtypes")}
+    assert {"co_cd64_group_sweeps", "co_group_power_l"} <= declared
+    found = _c_params([native._SRC], re.compile(
+        r"^(?:void|int) (co_\w+)\(([^)]*)\)\s*\{", re.M))
+    assert os.path.basename(native._SRC) == "co_native.cpp"
+    for name in declared:
+        assert len(getattr(lib, name).argtypes) == found[name], name

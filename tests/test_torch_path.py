@@ -217,7 +217,8 @@ def test_batch_matvecs_plain_match_jax():
 def test_lambda_max_t_matches_jax(kind, ngroups):
     A, b, _, _, _ = _arrays(14)
     A_t = _A_t(A)
-    tp = problem_from_numpy(A, b, kind, 1.0, ngroups=ngroups, block=B)
+    tp = problem_from_numpy(A, b, kind, 1.0, ngroups=ngroups, block=B,
+                            device="cpu")
     got = float(lambda_max_t(tp.A_t, tp.b, tp.penalty))
     jp = co.Penalty(lam1=1.0, kind=kind, ngroups=ngroups)
     want = float(j_lambda_max_t(jnp.asarray(A_t), jnp.asarray(b), jp,
@@ -241,7 +242,8 @@ PATH_CFG = dict(tol=1e-5, max_iters=4000, gap_every=10, stall_checks=20)
 @pytest.mark.parametrize("kind", ["l1", "nonneg_l1"])
 def test_batched_path_matches_jax(kind):
     j_inst, _, _ = j_make_host(21, M, N, penalty_kind=kind)
-    inst, _, _ = make_lasso_instance_host(21, M, N, penalty_kind=kind)
+    inst, _, _ = make_lasso_instance_host(21, M, N, penalty_kind=kind,
+                                          device="cpu")
     j_res = j_batched_lambda_path(j_inst.problem, JSolverConfig(**PATH_CFG),
                                   path_len=6)
     res = cot.batched_lambda_path(inst.problem, SolverConfig(**PATH_CFG),
@@ -267,7 +269,7 @@ def test_batched_path_matches_jax(kind):
                                           ("group_l2", 32)])
 def test_batched_path_matches_sequential(kind, ngroups):
     inst, _, _ = make_lasso_instance_host(22, M, N, penalty_kind=kind,
-                                          ngroups=ngroups)
+                                          ngroups=ngroups, device="cpu")
     cfg = SolverConfig(tol=1e-6, max_iters=4000, gap_every=10,
                        stall_checks=20)
     seq = cot.lambda_path(inst.problem, cfg, path_len=6, method="bcd_pallas")
@@ -287,7 +289,7 @@ def test_batched_path_matches_sequential(kind, ngroups):
 def test_batched_path_dense_grid_chunks():
     """Grids past MAX_BATCH run in warm-started chunks and stay
     certified."""
-    inst, _, _ = make_lasso_instance_host(23, M, N)
+    inst, _, _ = make_lasso_instance_host(23, M, N, device="cpu")
     L = MAX_BATCH + 5
     res = cot.batched_lambda_path(
         inst.problem, SolverConfig(tol=1e-6, max_iters=4000, gap_every=10,
@@ -301,7 +303,7 @@ def test_batched_path_dense_grid_chunks():
 def test_batched_path_falls_back_loudly_on_ineligible():
     # an f64 problem fails the gate: the sequential path runs, with a
     # warning naming the reason, and method_used records it
-    inst, _, _ = make_lasso_instance_host(24, M, N)
+    inst, _, _ = make_lasso_instance_host(24, M, N, device="cpu")
     p = inst.problem
     p64 = dataclasses.replace(p, A_t=p.A_t.double(), b=p.b.double())
     cfg = SolverConfig(tol=1e-7, max_iters=4000)
@@ -313,7 +315,7 @@ def test_batched_path_falls_back_loudly_on_ineligible():
 
 
 def test_row_mask_path_equals_masked_copy_problem():
-    inst, _, _ = make_lasso_instance_host(25, M, N)
+    inst, _, _ = make_lasso_instance_host(25, M, N, device="cpu")
     p = inst.problem
     rm = _t(kfold_train_masks(M, 4, seed=2)[1])
     cfg = SolverConfig(tol=1e-6, max_iters=4000, gap_every=10,
@@ -330,7 +332,7 @@ def test_row_mask_path_equals_masked_copy_problem():
 
 
 def test_bcd_batch_compact_raises():
-    inst, _, _ = make_lasso_instance_host(26, 32, 64)
+    inst, _, _ = make_lasso_instance_host(26, 32, 64, device="cpu")
     with pytest.raises(ValueError, match="bcd_batch"):
         cot.lambda_path(inst.problem, SolverConfig(), path_len=3,
                         method="bcd_batch", compact=True)
@@ -342,7 +344,7 @@ def test_bcd_batch_compact_raises():
     dict(method="bcd_pallas", compact=True), dict(mesh=object()),
 ])
 def test_unported_path_options_raise(kw):
-    inst, _, _ = make_lasso_instance_host(26, 32, 64)
+    inst, _, _ = make_lasso_instance_host(26, 32, 64, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cot.lambda_path(inst.problem, SolverConfig(), path_len=3, **kw)
     with pytest.raises(ValueError):
@@ -350,7 +352,7 @@ def test_unported_path_options_raise(kw):
 
 
 def test_solve_bcd_batch_raises_value_error():
-    inst, _, _ = make_lasso_instance_host(8, 32, 64)
+    inst, _, _ = make_lasso_instance_host(8, 32, 64, device="cpu")
     with pytest.raises(ValueError, match="lambda_path"):
         cot.solve(inst.problem, "bcd_batch")
 
@@ -361,7 +363,7 @@ def test_cv_matches_jax():
     jp = j_make_instance(jax.random.PRNGKey(33), 96, 320,
                          noise_std=0.05).problem
     tp = problem_from_numpy(np.array(jp.A), np.array(jp.b), "l1",
-                            float(jp.penalty.lam1))
+                            float(jp.penalty.lam1), device="cpu")
     kw = dict(tol=1e-6, max_iters=6000, gap_every=10, stall_checks=20)
     np.testing.assert_array_equal(kfold_train_masks(96, 3, seed=4),
                                   j_kfold_train_masks(96, 3, seed=4))
@@ -390,7 +392,7 @@ def test_cv_matches_jax():
 
 def test_batch_launch_counters_stay_zero_on_cpu():
     _build.reset_launches()
-    inst, _, _ = make_lasso_instance_host(28, M, N)
+    inst, _, _ = make_lasso_instance_host(28, M, N, device="cpu")
     cot.cv_lambda_path(inst.problem, SolverConfig(tol=1e-4, max_iters=200),
                        k=2, path_len=3)
     assert sum(_build.launches.values()) == 0

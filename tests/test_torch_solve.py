@@ -45,7 +45,7 @@ def _few_threads():
 def test_slice_matches_jax(kind, lam2):
     j_inst, jA, jb = j_make_host(0, 200, 800, penalty_kind=kind, lam2=lam2)
     inst, A, b = make_lasso_instance_host(0, 200, 800, penalty_kind=kind,
-                                          lam2=lam2)
+                                          lam2=lam2, device="cpu")
     j_res = co.solve(j_inst.problem, "bcd_pallas", **KW)
     res = cot.solve(inst.problem, "bcd_pallas", **KW)
     assert abs(res.iterations - j_res.iterations) <= KW["gap_every"]
@@ -65,7 +65,7 @@ def test_slice_matches_jax(kind, lam2):
 
 
 def test_polish_without_host_copy_gathers_from_the_problem():
-    inst, A, b = make_lasso_instance_host(1, 96, 384)
+    inst, A, b = make_lasso_instance_host(1, 96, 384, device="cpu")
     res = cot.solve(inst.problem, "bcd_pallas", **KW)
     with_host = cot.polish_support(inst.problem, res.x, A_host=A, b_host=b)
     no_host = cot.polish_support(inst.problem, res.x.numpy())
@@ -74,7 +74,7 @@ def test_polish_without_host_copy_gathers_from_the_problem():
 
 
 def test_polish_expands_from_a_truncated_start():
-    inst, A, b = make_lasso_instance_host(2, 96, 384)
+    inst, A, b = make_lasso_instance_host(2, 96, 384, device="cpu")
     res = cot.solve(inst.problem, "bcd_pallas", **KW)
     x = res.x.numpy().copy()
     x[np.argsort(-np.abs(x))[len(np.nonzero(x)[0]) // 2:]] = 0.0
@@ -84,7 +84,7 @@ def test_polish_expands_from_a_truncated_start():
 
 
 def test_bcd_and_bcd_pallas_agree_on_cpu():
-    inst, _, _ = make_lasso_instance_host(3, 128, 512)
+    inst, _, _ = make_lasso_instance_host(3, 128, 512, device="cpu")
     a = cot.solve(inst.problem, "bcd_pallas", **KW)
     b = cot.solve(inst.problem, "bcd", **KW)
     assert a.method == "bcd_pallas" and b.method == "bcd"
@@ -97,7 +97,7 @@ def test_bcd_and_bcd_pallas_agree_on_cpu():
 def test_padded_block_matches_jax_choice_and_certifies():
     # n = 804 has no multiple-of-8 divisor <= 128: both packages pad
     j_inst, jA, jb = j_make_host(4, 128, 804)
-    inst, A, b = make_lasso_instance_host(4, 128, 804)
+    inst, A, b = make_lasso_instance_host(4, 128, 804, device="cpu")
     kw = dict(KW, block_size=128)
     res = cot.solve(inst.problem, "bcd_pallas", **kw)
     j_res = co.solve(j_inst.problem, "bcd_pallas", **kw)
@@ -107,23 +107,55 @@ def test_padded_block_matches_jax_choice_and_certifies():
     assert pr.rel_gap <= 1e-6
 
 
+def _active_groups(x, ngroups):
+    return np.nonzero(np.abs(np.asarray(x)).reshape(ngroups, -1)
+                      .sum(axis=1) > 0)[0]
+
+
 def test_group_l2_solves_on_cpu_and_matches_jax():
     j_inst, _, _ = j_make_host(5, 96, 384, penalty_kind="group_l2",
                                ngroups=48)
-    inst, _, _ = make_lasso_instance_host(5, 96, 384,
+    inst, A, b = make_lasso_instance_host(5, 96, 384,
                                           penalty_kind="group_l2",
-                                          ngroups=48)
+                                          ngroups=48, device="cpu")
     kw = dict(KW, tol=1e-5)
     res = cot.solve(inst.problem, "bcd_pallas", **kw)
     j_res = co.solve(j_inst.problem, "bcd_pallas", **kw)
     assert res.converged and j_res.converged
     assert abs(res.iterations - j_res.iterations) <= kw["gap_every"]
-    with pytest.raises(NotImplementedError):
-        cot.polish_support(inst.problem, res.x)
+    pr = cot.polish_support(inst.problem, res.x, tol=1e-6, A_host=A,
+                            b_host=b)
+    assert pr.rel_gap <= 1e-6
+    j_gap = co.duality_gap(j_inst.problem, jnp.asarray(pr.x), precise=True)
+    assert float(j_gap.rel_gap) <= 1e-6
+
+
+@pytest.mark.parametrize("lam1_frac,lam2", [(0.1, 0.0), (0.05, 0.05)])
+def test_group_slice_matches_jax(lam1_frac, lam2):
+    """The group lasso through solve(bcd_pallas) and the group polish, in
+    both packages on the same host instance (80 groups of 10)."""
+    kw = dict(lam1_frac=lam1_frac, lam2=lam2, penalty_kind="group_l2",
+              ngroups=80)
+    j_inst, jA, jb = j_make_host(9, 200, 800, **kw)
+    inst, A, b = make_lasso_instance_host(9, 200, 800, device="cpu", **kw)
+    j_res = co.solve(j_inst.problem, "bcd_pallas", **KW)
+    res = cot.solve(inst.problem, "bcd_pallas", **KW)
+    assert abs(res.iterations - j_res.iterations) <= KW["gap_every"]
+    j_pr = j_polish_support(j_inst.problem, j_res.x, tol=1e-6, A_host=jA,
+                            b_host=jb)
+    pr = cot.polish_support(inst.problem, res.x, tol=1e-6, A_host=A,
+                            b_host=b)
+    assert j_pr.rel_gap <= 1e-6 and pr.rel_gap <= 1e-6
+    j_gap = co.duality_gap(j_inst.problem, jnp.asarray(pr.x), precise=True)
+    assert float(j_gap.rel_gap) <= 1e-6
+    active = _active_groups(pr.x, 80)
+    np.testing.assert_array_equal(active, _active_groups(j_pr.x, 80))
+    assert len(active) >= 2
+    assert pr.kept % 10 == 0 and pr.gather_s >= 0.0
 
 
 def test_result_fields_and_timing():
-    inst, _, _ = make_lasso_instance_host(6, 64, 256)
+    inst, _, _ = make_lasso_instance_host(6, 64, 256, device="cpu")
     res = cot.solve(inst.problem, "bcd_pallas", **KW)
     assert res.iterations > 0
     assert res.wall_time_s > 0 and res.setup_time_s > 0
@@ -136,7 +168,7 @@ def test_result_fields_and_timing():
 
 
 def test_stall_and_max_iters_stop_the_loop():
-    inst, _, _ = make_lasso_instance_host(7, 64, 256)
+    inst, _, _ = make_lasso_instance_host(7, 64, 256, device="cpu")
     res = cot.solve(inst.problem, "bcd_pallas", **dict(KW, max_iters=30,
                                                       tol=1e-12))
     assert res.iterations == 30 and not res.converged
@@ -152,7 +184,7 @@ def test_stall_and_max_iters_stop_the_loop():
 @pytest.mark.parametrize("method", ["fista", "ista", "admm", "bcd_ws",
                                     "fista_ws"])
 def test_unported_methods_raise(method):
-    inst, _, _ = make_lasso_instance_host(8, 32, 64)
+    inst, _, _ = make_lasso_instance_host(8, 32, 64, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cot.solve(inst.problem, method)
     with pytest.raises(ValueError):
