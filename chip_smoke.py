@@ -48,7 +48,25 @@ non-zero without one.  Phases, each of which fails the run if it fails:
      certified solves, solve(bcd_pallas, tol=1e-6, gap_every=10,
      stall_checks=15) with block_size=128 (B = 200: K1 + group prox) and
      block_size=3200 (B = 2000: K9), each polished by the group polish to
-     an f64 rel_gap <= 1e-6.
+     an f64 rel_gap <= 1e-6;
+  9. K8 (the column-sharded slab sweep) against its plain version: at a
+     small shape with weighted group_l2 and a partly-zero mask and with
+     nonneg_l1, on a 64-block slice of rank 0's slab of the headline at
+     P = 2, and on that whole slab (625 x 80 x 10000), timed; x, r, and
+     the merge payload (dr and the three scalars) are compared;
+  10. the column-sharded path, SHARD_P = 2 spawned ranks sharing the card
+     over gloo (the headline A reaches them as shared memory): psum, pmax,
+     the broadcast and the all-gather exact on CUDA tensors, the ring and
+     the reduce-scatter refused by the port on every rank with its own
+     error; a 500 x 2000 sharded BCD and FISTA (l1) and BCD (weighted
+     group_l2, 40 groups) on the card with psum and on the CPU in every
+     mode (steps within one check, each certified after the polish,
+     supports equal); the headline, solve(bcd_pallas, mesh=group,
+     tol=1e-6, max_iters=20000, gap_every=10, stall_checks=15,
+     block_size=128), x gathered and polished here to an f64 rel_gap <=
+     1e-6, K8 launched in every rank and K1 in none; then a world-size-1
+     NCCL group against the single-device solve, and a 2000 x 10000
+     single-device FISTA on the card against the CPU.
 
 Every path reads the launch counts set to 0 just before it.  Prints a JSON
 line per measured phase, one for the kernels (each with its time, the
@@ -81,6 +99,15 @@ BATCH_L = 10
 C4_SOLVE = dict(tol=1e-6, max_iters=20_000, gap_every=10, stall_checks=15)
 C4_ROUTES = (("k1_group", 128, 200, "sweep_t"),       # name, block_size, B,
              ("k9", 3200, 2000, "sweep_tiled_t"))     # the sweep it runs
+# the column-sharded path (phase 10): SHARD_P gloo ranks share the one card
+SHARD_P = 2
+SHARD_SMALL = (1, 500, 2000)                           # seed, m, n
+SHARD_GROUPS = 40          # the small run's weighted group_l2: 50 columns each
+SHARD_BCD = dict(tol=1e-6, max_iters=20_000, gap_every=10, stall_checks=15,
+                 block_size=128)
+SHARD_FISTA = dict(tol=1e-5, max_iters=20_000, gap_every=10,
+                   stall_checks=15)
+FISTA_MID = (2, 2000, 10_000)                          # seed, m, n
 # the H100 SXM's published peaks (NVIDIA data sheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -104,6 +131,8 @@ KERNELS = {
     "sweep_tiled_t": (
         "convex_optimization_tpu_torch/csrc/sweep_tiled.cu",
         "convex_optimization_tpu/ops/bcd_sweep_pallas_tiled.py:94"),
+    "sweep_slab_t": ("convex_optimization_tpu_torch/csrc/sweep_slab.cu",
+                     "convex_optimization_tpu/ops/bcd_sweep_pallas.py:126"),
 }
 MAIN_KERNELS = ("sweep_t", "ax_minus_b_t", "neg_at_r_t", "block_power_t")
 PATH_KERNELS = ("block_power_t", "batch_sweep_t", "ax_minus_b_batch_t",
@@ -191,7 +220,8 @@ def compare_kernels(A_t, b, x_probe, keep, label: str, stats: dict,
             f"{label} block_power_t err {err}")
     n, iters = nb * B, 48
     times = (time_ms(lambda: mv.block_power_t(A_t), 1),
-             time_ms(lambda: mv.block_power_t_plain(A_t), 1), None,
+             time_ms(lambda: mv.block_power_t_plain(A_t), 1),
+             time_ms(lambda: torch.linalg.matrix_norm(A_t, ord=2) ** 2, 1),
              (4 * m * n + 4 * nb, (4 * iters + 2) * m * n)) \
         if timed else ()
     record(stats, "block_power_t", err, *times)
@@ -840,6 +870,346 @@ def witness_bound_check(problem, x_pol, b_np) -> float:
     return ratio
 
 
+def slab_work(m: int, n: int, n_blocks: int) -> tuple[int, int]:
+    """(bytes, flops) of one K8 slab sweep: a sweep's, plus the payload
+    (m + 3 floats) out."""
+    nbytes, flops = sweep_work(m, n, n_blocks)
+    return nbytes + 4 * (m + 3), flops
+
+
+def compare_slab(A_t, b, pen, keep, label: str, stats: dict,
+                 timed: bool) -> None:
+    """K8 against its plain version on one slab A_t: the sweep from the
+    plain version's first sweep (x = 0, r = -b), so that x . dx is not
+    0.  Tolerances: x, r and the payload's dr as K1 (1e-5, 1e-4 past 64
+    blocks; r and dr relative to ||r||); the payload's three scalars
+    against the merge's expressions on K8's own x and r to 1e-4 of their
+    magnitude sums (sums of n terms in another order)."""
+    import torch
+
+    from convex_optimization_tpu_torch.ops import bcd_sweep as k1
+    from convex_optimization_tpu_torch.ops import bcd_sweep_slab as k8
+    from convex_optimization_tpu_torch.ops import matvec as mv
+
+    nb, B, m = A_t.shape
+    n = nb * B
+    steps = k1.block_steps(mv.block_power_t_plain(A_t), 0.0)
+    x0, r0, _ = k8.sweep_slab_t_plain(
+        A_t, torch.zeros(n, device=A_t.device), -b, steps, keep, pen, 0.0)
+    args = (A_t, x0, r0, steps, keep, pen, 0.0)
+    xk, rk, pk = k8.sweep_slab_t(*args)
+    xp, rp, pp = k8.sweep_slab_t_plain(*args)
+    tol = 1e-4 if nb > 64 else 1e-5
+    rn = float(torch.linalg.vector_norm(rp))
+    ex = float((xk - xp).abs().max())
+    require(ex <= tol * max(1.0, float(xp.abs().max())),
+            f"{label} sweep_slab_t x err {ex}")
+    for what, d in (("r", rk - rp), ("dr", pk[:m] - pp[:m])):
+        e = float(torch.linalg.vector_norm(d))
+        require(e <= tol * rn, f"{label} sweep_slab_t {what} err {e}")
+    if keep is not None:
+        require(bool((xk[~keep] == 0).all()),
+                f"{label} sweep_slab_t kept a masked x")
+    dx = xk - x0
+    wmax = 1.0 if pen.weights is None else float(pen.weights.max())
+    scale = torch.stack([(x0 * dx).abs().sum(), (dx * dx).sum(),
+                         float(pen.lam1) * wmax * dx.abs().sum()])
+    es = (pk[m:] - k8.merge_payload(x0, xk, r0, rk, pen)[m:]).abs()
+    require(float(scale[1]) > 0 and bool((es <= 1e-4 * scale).all()),
+            f"{label} sweep_slab_t payload scalars {pk[m:].tolist()} err "
+            f"{es.tolist()} scale {scale.tolist()}")
+    err = max(ex, float((rk - rp).abs().max()),
+              float((pk[:m] - pp[:m]).abs().max()))
+    times = (time_ms(lambda: k8.sweep_slab_t(*args), 10),
+             time_ms(lambda: k8.sweep_slab_t_plain(*args), 1), None,
+             slab_work(m, n, nb)) if timed else ()
+    record(stats, "sweep_slab_t", err, *times)
+    torch.cuda.synchronize()
+    log(f"# K8 vs plain [{label}] slab={tuple(A_t.shape)} {pen.kind}: ok "
+        f"(x err {ex:.3e}, payload {pk[m:].tolist()})")
+    if timed:
+        # K1 on the same slab: the serial reduction against K8's split one
+        k1_ms = time_ms(lambda: k1.sweep_t(*args), 5)
+        log(f"# K8 {times[0]:.3f} ms, K1 {k1_ms:.3f} ms, plain "
+            f"{times[1]:.3f} ms on the same slab {tuple(A_t.shape)}")
+
+
+def sharded_ranks_job(g, A_s, b_s, pens_s, A_shared, b_h, lam_h) -> dict:
+    """Phase 10 in each of the SHARD_P ranks (gloo, the ranks share the
+    card).  The collectives on CUDA tensors: the psum path's ops exact,
+    the ring and the reduce-scatter refused up front with the port's own
+    error (any other outcome fails the rank; nothing moves to the CPU);
+    the 500 x 2000 sharded BCD and FISTA (l1) and BCD (weighted group_l2;
+    ``pens_s``: problem_from_numpy's penalty arguments of each) on the
+    card with psum and on the CPU (plain versions) in every mode; then the
+    headline 10k x 100k sharded BCD from the shared-memory A, and the
+    all-reduce of one step's payload timed alone."""
+    import dataclasses
+
+    import torch
+
+    import convex_optimization_tpu_torch as cot
+    from convex_optimization_tpu_torch.core.problem import (
+        Problem,
+        problem_from_numpy,
+    )
+    from convex_optimization_tpu_torch.models.penalties import l1
+    from convex_optimization_tpu_torch.ops import _build
+    from convex_optimization_tpu_torch.parallel import collectives as col
+
+    def sync():
+        if g.device.type == "cuda":
+            torch.cuda.synchronize(g.device)
+
+    cpu = dataclasses.replace(g, device=torch.device("cpu"))
+    # v_r = base + r / 2 sums exactly in f32
+    P = g.size
+    base = torch.arange(4 * P, dtype=torch.float32, device=g.device)
+    v = base + 0.5 * g.rank
+    total = P * base + 0.25 * P * (P - 1)
+    exact = {}
+    for name, fn, want in (
+            ("psum", lambda: col.psum(v.clone(), g), total),
+            ("pmax", lambda: col.pmax(v.clone(), g), base + 0.5 * (P - 1)),
+            ("broadcast0", lambda: col.broadcast0(v.clone(), g), base),
+            ("all_gather", lambda: col.all_gather(v, g),
+             torch.cat([base + 0.5 * r for r in range(P)]))):
+        exact[name] = float((fn() - want).abs().max())
+    refused = {}
+    for name, fn in (("ring", lambda: col.ring_psum(v, g)),
+                     ("reduce_scatter",
+                      lambda: col.reduce_scatter_gather(v, g))):
+        try:
+            fn()
+        except RuntimeError as e:
+            msg = str(e).splitlines()[0]
+            if not msg.startswith("gloo takes no CUDA"):
+                raise
+            refused[name] = msg
+        else:
+            raise RuntimeError(f"{name} ran over gloo on CUDA tensors; the "
+                               "port refuses it there")
+    exact["psum_after"] = float((col.psum(v.clone(), g) - total).abs().max())
+    sync()
+
+    p_small = {k: problem_from_numpy(A_s, b_s, device="cpu", **pen)
+               for k, pen in pens_s.items()}
+    small = {}
+    for where, gg in (("card", g), ("cpu", cpu)):
+        for kind, method, kw in (("l1", "bcd_pallas", SHARD_BCD),
+                                 ("l1", "fista", SHARD_FISTA),
+                                 ("group_l2", "bcd_pallas", SHARD_BCD)):
+            for mode in (("psum",) if where == "card"
+                         else ("psum", "ring", "reduce_scatter")):
+                _build.reset_launches()
+                res = cot.solve(p_small[kind], method, mesh=gg,
+                                consensus=mode, **kw)
+                small[(where, method, mode, kind)] = dict(
+                    x=res.x.cpu().numpy(), k=res.iterations,
+                    rel_gap=res.rel_gap, wall=res.wall_time_s,
+                    launches=dict(_build.launches))
+
+    p_head = Problem(A_t=A_shared.unsqueeze(1), b=b_h, penalty=l1(lam_h))
+    sync()
+    _build.reset_launches()
+    res = cot.solve(p_head, "bcd_pallas", mesh=g, **SOLVE_KW)
+    sync()
+    launches = dict(_build.launches)
+    pay = torch.zeros(p_head.m + 3, device=g.device)
+    col.psum(pay, g)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        col.psum(pay, g)
+    sync()
+    ar_ms = 1e3 * (time.perf_counter() - t0) / 50
+    head = dict(k=res.iterations, rel_gap=res.rel_gap, wall=res.wall_time_s,
+                setup=res.setup_time_s, launches=launches, allreduce_ms=ar_ms,
+                rel_gaps=res.history["rel_gap"].tolist(),
+                x=res.x.cpu().numpy() if g.rank == 0 else None)
+    return dict(exact=exact, refused=refused, small=small, head=head)
+
+
+def sharded_phase(device, problem, A_np, b_np, gpu: str, power: str
+                  ) -> int:
+    """Phase 10: the column-sharded path.  Returns K8's launches on the
+    headline sharded solve (all ranks)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import convex_optimization_tpu_torch as cot
+    from convex_optimization_tpu_torch.core.datagen import (
+        make_lasso_instance_host,
+    )
+    from convex_optimization_tpu_torch.ops import _build
+    from convex_optimization_tpu_torch.parallel.launch import run_ranks
+    from convex_optimization_tpu_torch.parallel.mesh import init_multihost
+
+    small, A_s, b_s = make_lasso_instance_host(*SHARD_SMALL, device="cpu")
+    w_s = np.random.default_rng(SHARD_SMALL[0]).uniform(
+        0.5, 1.5, SHARD_GROUPS).astype(np.float32)
+    g_norms = np.linalg.norm((A_s.T @ b_s).reshape(SHARD_GROUPS, -1), axis=1)
+    pens_s = {"l1": dict(penalty_kind="l1",
+                         lam1=float(small.problem.penalty.lam1)),
+              "group_l2": dict(penalty_kind="group_l2", ngroups=SHARD_GROUPS,
+                               weights=w_s,
+                               lam1=float(0.1 * (g_norms / w_s).max()))}
+    probs_s = {k: cot.problem_from_numpy(A_s, b_s, device="cpu", **pen)
+               for k, pen in pens_s.items()}
+    # the ranks map the headline A from shared memory (no pickled copy)
+    A_shared = torch.from_numpy(np.ascontiguousarray(A_np.T)).share_memory_()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = run_ranks(sharded_ranks_job, SHARD_P, tmp, A_s, b_s, pens_s,
+                          A_shared, torch.from_numpy(b_np),
+                          float(problem.penalty.lam1),
+                          device=str(device), backend="gloo",
+                          timeout_s=900, collective_timeout_s=300)
+    ranks_s = time.perf_counter() - t0
+    del A_shared
+    r0 = ranks[0]
+    for rank in ranks:
+        require(all(e == 0.0 for e in rank["exact"].values()),
+                f"gloo collectives on CUDA tensors: errors {rank['exact']}")
+        require(sorted(rank["refused"]) == ["reduce_scatter", "ring"],
+                f"gloo on CUDA tensors refused {rank['refused']}")
+    refused = r0["refused"]
+
+    # the small runs: card against CPU, each certified after the polish
+    gap_every = SHARD_BCD["gap_every"]
+    smalls = {}
+    polished = {}
+    for key, run in r0["small"].items():
+        where, method, mode, kind = key
+        pr = cot.polish_support(probs_s[kind], torch.from_numpy(run["x"]),
+                                tol=1e-6, A_host=A_s, b_host=b_s)
+        require(pr.rel_gap <= 1e-6,
+                f"sharded small {key}: f64 gap {pr.rel_gap}")
+        polished[key] = np.abs(pr.x) > 1e-4
+        smalls["/".join(key)] = dict(k=run["k"], f32_rel_gap=run["rel_gap"],
+                                     f64_rel_gap=pr.rel_gap,
+                                     wall_s=run["wall"])
+        if where == "card":
+            if method == "bcd_pallas":
+                for rank in ranks:
+                    lc = rank["small"][key]["launches"]
+                    require(lc.get("sweep_slab_t", 0) > 0
+                            and lc.get("sweep_t", 0) == 0,
+                            f"sharded small {key}: launches {lc}")
+            ref = r0["small"][("cpu",) + key[1:]]
+            require(abs(run["k"] - ref["k"]) <= gap_every,
+                    f"sharded small {key}: {run['k']} steps on the card, "
+                    f"{ref['k']} on the CPU")
+    for key in polished:
+        other = ("cpu",) + key[1:] if key[0] == "card" else key
+        require(bool((polished[key] == polished[other]).all()),
+                f"sharded small {key}: support differs from the CPU's")
+    log(f"# sharded small {SHARD_SMALL[1]}x{SHARD_SMALL[2]} P={SHARD_P}: "
+        f"{smalls}; refused on gloo with CUDA tensors: {refused}")
+
+    # the headline: x gathered in the ranks, polished here
+    head = r0["head"]
+    for rank in ranks:
+        lc = rank["head"]["launches"]
+        require(lc.get("sweep_slab_t", 0) > 0 and lc.get("sweep_t", 0) == 0,
+                f"sharded headline launches {lc}")
+        require(rank["head"]["k"] == head["k"], "ranks disagree on steps")
+    x = head["x"]
+    require(x.shape == (problem.n,) and bool(np.isfinite(x).all()),
+            "sharded headline x")
+    pr = cot.polish_support(problem, torch.from_numpy(x).to(device),
+                            tol=SOLVE_KW["tol"], A_host=A_np, b_host=b_np)
+    require(pr.rel_gap <= SOLVE_KW["tol"],
+            f"sharded headline f64 certificate {pr.rel_gap}")
+    k8_launches = sum(r["head"]["launches"].get("sweep_slab_t", 0)
+                      for r in ranks)
+    print(json.dumps({
+        "metric": "sharded_time_to_certified_1e-06_rel_gap_lasso_"
+                  f"{problem.m}x{problem.n}_{SHARD_P}ranks_1card",
+        "sweeps": head["k"],
+        "solve_wall_s": head["wall"],
+        "polish_wall_s": pr.wall_time_s,
+        "total_s": head["wall"] + pr.wall_time_s,
+        "ms_per_step": 1e3 * head["wall"] / max(head["k"], 1),
+        "allreduce_ms": head["allreduce_ms"],
+        "allreduce_share": head["k"] * head["allreduce_ms"]
+        / (1e3 * head["wall"]),
+        "k4_setup_s": head["setup"],
+        "f32_rel_gap": head["rel_gap"],
+        "f64_rel_gap": pr.rel_gap,
+        "nnz": int(np.count_nonzero(pr.x)),
+        "launches_per_rank": [r["head"]["launches"] for r in ranks],
+        "ranks_wall_s": ranks_s,
+        "refused_on_gloo_cuda": refused,
+        "gpu": gpu,
+        "power_limit": power,
+    }), flush=True)
+
+    # a world-size-1 NCCL group: the NCCL code path, against the
+    # single-device solve on the same card
+    small_c, _, _ = make_lasso_instance_host(*SHARD_SMALL, device=device)
+    with tempfile.TemporaryDirectory() as tmp:
+        g1 = init_multihost(f"file://{tmp}/store", 0, 1, device)
+        try:
+            require(g1.backend == "nccl", f"backend {g1.backend}")
+            nccl = {}
+            for method, kw in (("bcd_pallas", SHARD_BCD),
+                               ("fista", SHARD_FISTA)):
+                # the sharded BCD at P = 1 skips the per-check residual
+                # refresh and sweeps with K8, not K1: the step counts
+                # may part by a few checks near the f32 floor, so the
+                # certificates and supports are compared
+                res_s = cot.solve(small_c.problem, method, mesh=g1, **kw)
+                res_1 = cot.solve(small_c.problem, method, **kw)
+                require(res_s.method == f"sharded_{method.split('_')[0]}",
+                        f"NCCL run method {res_s.method}")
+                prs = [cot.polish_support(small_c.problem, r.x, tol=1e-6,
+                                          A_host=A_s, b_host=b_s)
+                       for r in (res_s, res_1)]
+                require(max(pr.rel_gap for pr in prs) <= 1e-6,
+                        f"NCCL {method} f64 gaps {[p.rel_gap for p in prs]}")
+                require(bool(((abs(prs[0].x) > 1e-4)
+                              == (abs(prs[1].x) > 1e-4)).all()),
+                        f"NCCL {method}: support differs from the single "
+                        "device's")
+                nccl[method] = dict(k=res_s.iterations,
+                                    single_device_k=res_1.iterations,
+                                    f64_rel_gap=prs[0].rel_gap)
+        finally:
+            dist.destroy_process_group()
+    log(f"# NCCL world-size-1 group: {nccl}")
+
+    # single-device FISTA, 2000 x 10000, card against CPU
+    kw = dict(SHARD_FISTA, max_iters=5000)
+    inst_c, A_m, b_m = make_lasso_instance_host(*FISTA_MID, device=device)
+    inst_h, _, _ = make_lasso_instance_host(*FISTA_MID, device="cpu")
+    _build.reset_launches()
+    res_c = cot.solve(inst_c.problem, "fista", **kw)
+    lc = dict(_build.launches)
+    require(lc.get("ax_minus_b_t", 0) > res_c.iterations > 0
+            and lc.get("neg_at_r_t", 0) > res_c.iterations,
+            f"FISTA on the card launches {lc}")
+    res_h = cot.solve(inst_h.problem, "fista", **kw)
+    require(abs(res_c.iterations - res_h.iterations) <= kw["gap_every"],
+            f"FISTA {res_c.iterations} steps on the card, "
+            f"{res_h.iterations} on the CPU")
+    supports = []
+    for res in (res_c, res_h):
+        prf = cot.polish_support(inst_h.problem, res.x.cpu(), tol=1e-6,
+                                 A_host=A_m, b_host=b_m)
+        require(prf.rel_gap <= 1e-6, f"FISTA polish gap {prf.rel_gap}")
+        supports.append(np.abs(prf.x) > 1e-4)
+    require(bool((supports[0] == supports[1]).all()),
+            "FISTA supports differ card vs CPU")
+    log(f"# FISTA {FISTA_MID[1]}x{FISTA_MID[2]}: card {res_c.iterations} "
+        f"steps {res_c.wall_time_s:.3f} s (L_total {res_c.setup_time_s:.3f}"
+        f" s), CPU {res_h.iterations} steps {res_h.wall_time_s:.3f} s")
+    return k8_launches
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # one card: the first, unless the caller picked one
@@ -950,7 +1320,8 @@ def main() -> None:
         "gpu": gpu_name,
         "power_limit": power_limit,
     }), flush=True)
-    del problem, inst, res, pr, A_np, b_np, A_t80
+    # the headline instance stays for phases 9 and 10
+    del res, pr, A_t80
 
     # 5. batched kernels vs plain versions
     compare_batch_kernels(A_small.view(32, 32, 256), b_small, "small", stats,
@@ -993,14 +1364,45 @@ def main() -> None:
         {"sweep_t": 32, "sweep_tiled_t": 256}, "small", stats, timed=False)
     small_group_reference(device)
     k9_launches = config4(device, gpu_name, power_limit, stats)
+    torch.cuda.empty_cache()
+
+    # 9. K8 against its plain version: small shapes (weighted group_l2
+    # with a partly-zero mask, nonneg_l1), then rank 0's slab of the
+    # headline at P = 2 (625 x 80 x 10000): a 64-block slice and the whole
+    small = torch.randn(2048, 512, generator=gen)
+    small /= torch.linalg.vector_norm(small, dim=1, keepdim=True)
+    small_t = small.to(device).view(64, 32, 512)
+    b_s = torch.randn(512, generator=gen).to(device)
+    w_s = 0.5 + torch.rand(128, generator=gen).to(device)
+    keep_s = (torch.rand(2048, generator=gen) > 0.1).to(device)
+    lam_s = 0.1 * float(b_s.norm())
+    compare_slab(small_t, b_s, cot.group_l2(lam_s, 128, w_s), keep_s,
+                 "small", stats, timed=False)
+    compare_slab(small_t, b_s, cot.nonneg_l1(0.2 * lam_s), keep_s, "small",
+                 stats, timed=False)
+    slab = problem.A_t.view(N // 80, 80, M)[:N // 80 // SHARD_P]
+    keep_part = (torch.rand(64 * 80, generator=gen) > 0.1).to(device)
+    compare_slab(slab[:64], problem.b, problem.penalty, keep_part, "slice",
+                 stats, timed=False)
+    compare_slab(slab, problem.b, problem.penalty, None, "slab", stats,
+                 timed=True)
+    del slab
+
+    # 10. the column-sharded path: SHARD_P ranks on the card, the NCCL
+    # world-size-1 group, single-device FISTA
+    slab_launches = sharded_phase(device, problem, A_np, b_np, gpu_name,
+                                  power_limit)
+    del problem, inst, A_np, b_np
 
     require(all(math.isfinite(stats[k]["ms"]) for k in KERNELS),
             "kernel times")
     log(f"# chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     kernel_launches = {k: launches[k] for k in MAIN_KERNELS}
     kernel_launches.update({k: path_launches[k] for k in KERNELS
-                            if k not in MAIN_KERNELS + ("sweep_tiled_t",)})
+                            if k not in MAIN_KERNELS + ("sweep_tiled_t",
+                                                        "sweep_slab_t")})
     kernel_launches["sweep_tiled_t"] = k9_launches["sweep_tiled_t"]
+    kernel_launches["sweep_slab_t"] = slab_launches
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": kernel_launches[name],

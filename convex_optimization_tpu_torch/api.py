@@ -1,7 +1,9 @@
 """User-facing API: ``solve(problem, method=...) -> Result``.
 
-Counterpart of ``convex_optimization_tpu/api.py`` for the ``bcd`` and
-``bcd_pallas`` methods (``api.py:246-330, 405-430`` there).  The relay
+Counterpart of ``convex_optimization_tpu/api.py`` for the ``bcd``,
+``bcd_pallas``, ``fista`` and ``ista`` methods (``api.py:204-330,
+405-430`` there), the column-sharded solvers (``mesh=``, a
+``parallel.mesh.ColumnGroup``) and the f64 certify phase.  The relay
 timing protocol of the JAX package (a warm run, then a perturbed timed
 run) has no reason to exist here: the kernels are built and loaded before
 the clock starts, and the one solve is timed between
@@ -17,12 +19,15 @@ from typing import Any, Optional
 import torch
 
 from convex_optimization_tpu_torch.core.problem import Problem
+from convex_optimization_tpu_torch.ops import _build
 from convex_optimization_tpu_torch.ops.bcd_sweep import pick_block_size_t
 from convex_optimization_tpu_torch.ops.matvec import (
     block_power_t,
     block_power_t_plain,
+    spectral_norm_sq_t,
 )
 from convex_optimization_tpu_torch.solvers import bcd as bcd_mod
+from convex_optimization_tpu_torch.solvers import fista as fista_mod
 from convex_optimization_tpu_torch.solvers.common import (
     NOT_PORTED,
     SolverConfig,
@@ -31,17 +36,17 @@ from convex_optimization_tpu_torch.solvers.common import (
 
 @dataclasses.dataclass
 class Result:
-    x: torch.Tensor
+    x: torch.Tensor          # float64 after an f64 certify phase
     gap: float               # absolute duality gap at the best check
     rel_gap: float           # relative duality gap (the convergence criterion)
     primal: float
-    iterations: int          # BCD sweeps, all within wall_time_s
+    iterations: int          # sweeps or FISTA steps, all in wall_time_s
     converged: bool
     wall_time_s: float       # solve wall clock (excludes build and set-up)
     history: dict            # convergence history (numpy arrays)
     method: str
     config: SolverConfig
-    setup_time_s: float = 0.0   # per-block Lipschitz constants (K4)
+    setup_time_s: float = 0.0   # Lipschitz constants (K4, or L_total)
 
     @property
     def nnz(self) -> int:
@@ -78,13 +83,20 @@ def _pad_columns(problem: Problem, pad: int) -> Problem:
 def solve(problem: Problem, method: str = "bcd_pallas", *,
           x0: Optional[torch.Tensor] = None,
           cfg: Optional[SolverConfig] = None,
+          mesh=None,
+          certify: bool = False,
           **cfg_overrides: Any) -> Result:
     """Solve a composite problem on the device of ``problem.A_t``.
 
     method: 'bcd_pallas' (K1 or K9, K2-K4: the CUDA kernels for a CUDA
-    problem, their plain versions for a CPU problem) or 'bcd' (the plain
-    reference sweep); 'bcd_batch' solves a grid and is reached through
-    ``lambda_path``.  Extra kwargs override SolverConfig fields."""
+    problem, their plain versions for a CPU problem), 'bcd' (the plain
+    reference sweep), 'fista' or 'ista' (K2/K3 steps); 'bcd_batch' solves
+    a grid and is reached through ``lambda_path``.  With ``mesh`` (a
+    ``parallel.mesh.ColumnGroup``) every rank of the group calls this with
+    the same problem and solves its column slab on the group's device
+    (``parallel/sharded.py``).  ``certify=True`` finishes with the f64
+    polish when the f32 solve stopped above tol.  Extra kwargs override
+    SolverConfig fields."""
     if method in NOT_PORTED:
         raise NotImplementedError(
             f"method {method!r} is not ported yet "
@@ -93,14 +105,70 @@ def solve(problem: Problem, method: str = "bcd_pallas", *,
         raise ValueError(
             "method 'bcd_batch' solves a LAMBDA GRID, not a single point — "
             "use lambda_path(problem, cfg, method='bcd_batch')")
-    if method not in ("bcd", "bcd_pallas"):
+    if method not in ("bcd", "bcd_pallas", "fista", "ista"):
         raise ValueError(f"unknown method {method!r}")
+    if mesh is not None:
+        from convex_optimization_tpu_torch.parallel.sharded import (
+            solve_sharded,
+        )
+
+        res = solve_sharded(problem, method, mesh, x0=x0, cfg=cfg,
+                            **cfg_overrides)
+        return _maybe_certify(problem, res, certify)
     cfg = SolverConfig() if cfg is None else cfg
+    if method == "ista":
+        cfg_overrides.setdefault("momentum", False)
     if method == "bcd_pallas":
         cfg_overrides.setdefault("use_pallas", True)
     if cfg_overrides:
         cfg = dataclasses.replace(cfg, **cfg_overrides)
+    if method in ("fista", "ista"):
+        res = _solve_fista(problem, method, x0, cfg)
+    else:
+        res = _solve_bcd(problem, method, x0, cfg)
+    return _maybe_certify(problem, res, certify)
 
+
+def _solve_fista(problem: Problem, method: str, x0, cfg: SolverConfig
+                 ) -> Result:
+    """FISTA/ISTA with L_total = ||A||^2 + lam2 by the K2/K3 power
+    iteration (set-up, outside the solve wall)."""
+    device = problem.device
+    if device.type == "cuda":
+        _build.load()
+    _sync(device)
+    t0 = time.perf_counter()
+    L_total = float(spectral_norm_sq_t(problem.A_t)) + problem.lam2
+    setup_s = time.perf_counter() - t0
+    state0 = fista_mod.init_state(problem, x0)
+    _sync(device)
+    t1 = time.perf_counter()
+    final = fista_mod.fista(problem, L_total, state0, cfg)
+    _sync(device)
+    return _result(final, method, cfg, time.perf_counter() - t1, setup_s)
+
+
+def _result(final, method: str, cfg: SolverConfig, wall: float,
+            setup_s: float, n: int | None = None) -> Result:
+    """Result from a final state: the best-certified iterate (cut to the
+    first ``n`` coordinates when given) and its check's numbers."""
+    return Result(
+        x=final.x_best if n is None else final.x_best[:n],
+        gap=final.best_gap,
+        rel_gap=final.best_rel_gap,
+        primal=final.best_primal,
+        iterations=final.k,
+        converged=final.best_rel_gap <= cfg.tol,
+        wall_time_s=wall,
+        history=final.history.trimmed(),
+        method=method,
+        config=cfg,
+        setup_time_s=setup_s,
+    )
+
+
+def _solve_bcd(problem: Problem, method: str, x0, cfg: SolverConfig
+               ) -> Result:
     device = problem.device
     orig_n = problem.n
     multiple = 1
@@ -135,19 +203,21 @@ def solve(problem: Problem, method: str = "bcd_pallas", *,
     t1 = time.perf_counter()
     final = bcd_mod.bcd(problem, block_L, state0, cfg)
     _sync(device)
-    wall = time.perf_counter() - t1
+    return _result(final, method, cfg, time.perf_counter() - t1, setup_s,
+                   orig_n)
 
-    x_out = final.x_best[:orig_n]
-    return Result(
-        x=x_out,
-        gap=final.best_gap,
-        rel_gap=final.best_rel_gap,
-        primal=final.best_primal,
-        iterations=final.k,
-        converged=final.best_rel_gap <= cfg.tol,
-        wall_time_s=wall,
-        history=final.history.trimmed(),
-        method=method,
-        config=cfg,
-        setup_time_s=setup_s,
-    )
+
+def _maybe_certify(problem: Problem, res: Result, certify: bool) -> Result:
+    """certify=True: if the f32 solve stopped above tol, finish with the
+    f64 polish and fold its certificate into the Result (x becomes the
+    polish's float64 iterate, on the problem's device)."""
+    if not certify or (res.converged and res.rel_gap <= res.config.tol):
+        return res
+    from convex_optimization_tpu_torch.solvers.polish import polish_support
+
+    pr = polish_support(problem, res.x, tol=res.config.tol)
+    return dataclasses.replace(
+        res, x=torch.from_numpy(pr.x).to(problem.device),
+        gap=pr.gap, rel_gap=pr.rel_gap, primal=pr.primal,
+        converged=pr.rel_gap <= res.config.tol,
+        wall_time_s=res.wall_time_s + pr.wall_time_s)

@@ -49,20 +49,14 @@
 
 #include <cstdint>
 
+#include "prox.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxSmemBytes = 227 * 1024;
-
-__device__ __forceinline__ float prox(float v, float tl, int kind) {
-  if (kind == 0) {
-    const float a = fmaxf(fabsf(v) - tl, 0.0f);
-    return v > 0.0f ? a : (v < 0.0f ? -a : 0.0f);
-  }
-  return fmaxf(v - tl, 0.0f);
-}
 
 __global__ void __launch_bounds__(kThreads)
 sweep_kernel(const float* __restrict__ A_t, const float* __restrict__ x_in,

@@ -51,6 +51,8 @@
 
 #include <cstdint>
 
+#include "prox.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -59,21 +61,6 @@ constexpr int kThreads = 256;
 constexpr int kStages = 3;
 constexpr int kChunkBytes = 32 * 1024;
 constexpr int kMaxSmemBytes = 227 * 1024;
-
-__device__ __forceinline__ float prox(float v, float tl, int kind) {
-  if (kind == 0) {
-    const float a = fmaxf(fabsf(v) - tl, 0.0f);
-    return v > 0.0f ? a : (v < 0.0f ? -a : 0.0f);
-  }
-  return fmaxf(v - tl, 0.0f);
-}
-
-__device__ __forceinline__ float warp_sum(float s) {
-  for (int off = 16; off > 0; off >>= 1) {
-    s += __shfl_xor_sync(0xffffffffu, s, off);
-  }
-  return s;
-}
 
 // V floats per copy: 4 (16 bytes, rows and m multiples of 4) or 1.
 template <int V>

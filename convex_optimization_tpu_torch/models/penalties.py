@@ -9,7 +9,8 @@ conventions are documented there.  ``P(x) = 0.5||Ax - b||^2 + (lam2/2)||x||^2
   - ``"group_l2"``:  g(x) = lam1 * sum_g w_g ||x_g||_2 over contiguous,
                      equal-size groups
 
-Gap-safe screening (``screen_keep``) is not part of this slice.
+``value_diff`` serves the column-sharded BCD line search.  Gap-safe
+screening (``screen_keep``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -56,6 +57,28 @@ class Penalty:
             gn = torch.linalg.vector_norm(self._grouped(x), dim=1)
             return self.lam1 * torch.sum(
                 self._gweights(x.dtype, x.device) * gn)
+        raise ValueError(f"unknown penalty kind {self.kind!r}")
+
+    def value_diff(self, x: torch.Tensor, dx: torch.Tensor) -> torch.Tensor:
+        """g(x + dx) - g(x) without the difference of two large sums, which
+        cancels in f32 near convergence (the sharded BCD line search).
+
+        l1: |x + d| - |x| is sign(x) d exactly where the sign does not
+        flip; elsewhere |x| <= |d|, so every term is O(|d_i|).  group_l2:
+        ||a + d|| - ||a|| = (2<a, d> + ||d||^2) / (||a + d|| + ||a||)."""
+        if self.kind in ("l1", "nonneg_l1"):
+            xn = x + dx
+            diff = torch.where(xn * x > 0, torch.sign(x) * dx,
+                               torch.abs(xn) - torch.abs(x))
+            return self.lam1 * torch.sum(diff)
+        if self.kind == "group_l2":
+            xg, dg = self._grouped(x), self._grouped(dx)
+            n_old = torch.linalg.vector_norm(xg, dim=1)
+            n_new = torch.linalg.vector_norm(xg + dg, dim=1)
+            num = 2.0 * torch.sum(xg * dg, dim=1) + torch.sum(dg * dg, dim=1)
+            diff = num / torch.clamp(n_new + n_old, min=1e-30)
+            return self.lam1 * torch.sum(
+                self._gweights(x.dtype, x.device) * diff)
         raise ValueError(f"unknown penalty kind {self.kind!r}")
 
     def prox(self, v: torch.Tensor, t) -> torch.Tensor:

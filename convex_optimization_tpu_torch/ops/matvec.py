@@ -174,19 +174,46 @@ def block_power_t(A_t: torch.Tensor, *, iters: int = 48,
     return out
 
 
+def power_iteration(av, atu, v0: torch.Tensor, vdot=torch.dot, *,
+                    iters: int = 48, safety: float = 1.02) -> torch.Tensor:
+    """||A||_2^2 by power iteration on A^T A from ``v0``: ``av(v)`` = A v,
+    ``atu(u)`` = A^T u, ``vdot`` the inner product of two n-vectors (the
+    column-sharded solver passes products and a dot that reduce over the
+    ranks, and its slice of the start)."""
+    v = v0 / torch.sqrt(vdot(v0, v0))
+    for _ in range(iters):
+        w = atu(av(v))
+        v = w / torch.clamp(torch.sqrt(vdot(w, w)), min=1e-30)
+    u = av(v)
+    return safety * torch.dot(u, u) / torch.clamp(vdot(v, v), min=1e-30)
+
+
+def sin_start(n: int, dtype, device, lo: int = 0) -> torch.Tensor:
+    """Entries lo .. lo + n of the JAX package's deterministic power
+    iteration start sin(1, 2, ...)."""
+    return torch.sin(torch.arange(lo + 1, lo + n + 1, dtype=dtype,
+                                  device=device))
+
+
 def spectral_norm_sq_t(A_t: torch.Tensor, *, iters: int = 48,
                        safety: float = 1.02) -> torch.Tensor:
     """||A||_2^2 by power iteration composed of K2 and K3 (not a kernel of
-    its own), from the JAX package's deterministic start sin(1..n)."""
+    its own): the FISTA step size."""
     nb, B, m = A_t.shape
-    n = nb * B
     zeros_m = torch.zeros((m,), dtype=A_t.dtype, device=A_t.device)
-    zeros_n = torch.zeros((n,), dtype=A_t.dtype, device=A_t.device)
-    v = torch.sin(torch.arange(1, n + 1, dtype=A_t.dtype, device=A_t.device))
-    v = v / torch.linalg.vector_norm(v)
-    for _ in range(iters):
-        u = ax_minus_b_t(A_t, v, zeros_m)
-        w = -neg_at_r_t(A_t, u, zeros_n, 0.0)
-        v = w / torch.clamp(torch.linalg.vector_norm(w), min=1e-30)
-    u = ax_minus_b_t(A_t, v, zeros_m)
-    return safety * torch.dot(u, u) / torch.clamp(torch.dot(v, v), min=1e-30)
+    zeros_n = torch.zeros((nb * B,), dtype=A_t.dtype, device=A_t.device)
+    return power_iteration(lambda v: ax_minus_b_t(A_t, v, zeros_m),
+                           lambda u: -neg_at_r_t(A_t, u, zeros_n, 0.0),
+                           sin_start(nb * B, A_t.dtype, A_t.device),
+                           iters=iters, safety=safety)
+
+
+def spectral_norm_sq(A_t: torch.Tensor, *, iters: int = 48,
+                     safety: float = 1.02) -> torch.Tensor:
+    """Plain form of ``spectral_norm_sq_t``: the same iteration with
+    PyTorch matvecs on any device."""
+    A_rows = _flat(A_t)
+    return power_iteration(lambda v: torch.mv(A_rows.T, v),
+                           lambda u: torch.mv(A_rows, u),
+                           sin_start(A_rows.shape[0], A_t.dtype, A_t.device),
+                           iters=iters, safety=safety)

@@ -38,6 +38,7 @@ from convex_optimization_tpu_torch.solvers.common import (
 )
 from convex_optimization_tpu_torch.solvers.fista import (  # noqa: F401
     _check_and_record,
+    continue_loop,
     init_state,
 )
 
@@ -85,13 +86,6 @@ def prepare_sweep(A_t: torch.Tensor) -> None:
         tiled_plan(A_t.device, B, m, copy_width(A_t))
 
 
-def _continue(s: SolveState, cfg: SolverConfig) -> bool:
-    go = s.k < cfg.max_iters and s.rel_gap > cfg.tol
-    if cfg.stall_checks > 0:
-        go = go and s.stall < cfg.stall_checks
-    return go
-
-
 def bcd(problem: Problem, block_L: torch.Tensor, state: SolveState,
         cfg: SolverConfig) -> SolveState:
     """Sweep until rel. duality gap <= cfg.tol, max_iters sweeps, or
@@ -135,7 +129,7 @@ def bcd(problem: Problem, block_L: torch.Tensor, state: SolveState,
             return _check_and_record(problem, s)
 
     state = refresh_and_check(state)
-    while _continue(state, cfg):
+    while continue_loop(state, cfg):
         for _ in range(cfg.gap_every):
             x, r = sweep(state)
             state = state._replace(x=x, r=r, k=state.k + 1)

@@ -20,8 +20,6 @@ import torch
 #: methods of the JAX package that later PRs port (``solve`` and
 #: ``lambda_path`` raise for them), with their ROADMAP item
 NOT_PORTED = {
-    "fista": "queue 1, item 9",
-    "ista": "queue 1, item 9",
     "fista_ws": "queue 1, item 11",
     "bcd_ws": "queue 1, item 11",
     "admm": "queue 1, item 12",
@@ -30,17 +28,23 @@ NOT_PORTED = {
 
 @dataclasses.dataclass(frozen=True)
 class SolverConfig:
-    """Solver knobs: the JAX package's SolverConfig minus the FISTA,
-    screening and sharded-solver options, which come with those solvers."""
+    """Solver knobs: the JAX package's SolverConfig minus screening, which
+    comes with the screening solver, and ``unroll_checks``, an XLA:CPU
+    workaround with no counterpart here."""
 
     max_iters: int = 2000
     tol: float = 1e-6          # relative duality-gap target (the 1e-6 grade)
-    gap_every: int = 10        # convergence check cadence (sweeps)
+    gap_every: int = 10        # convergence check cadence (iters or sweeps)
+    momentum: bool = True      # FISTA (True) vs ISTA (False)
+    adaptive_restart: bool = True
     block_size: int = 256      # BCD column-block width
     step_scale: float = 1.0    # BCD step damping
     use_pallas: bool = False   # BCD: device kernels vs plain sweep
     stall_checks: int = 0      # 0 = off; else exit after this many gap
                                # checks without a new best rel_gap
+    consensus: str = "psum"    # column-sharded residual consensus: "psum",
+                               # "ring" or "reduce_scatter"
+                               # (parallel/collectives.py)
 
 
 @dataclasses.dataclass
@@ -75,8 +79,10 @@ class History:
 
 
 class SolveState(NamedTuple):
-    """Solver carry: device tensors plus the last check's host scalars
-    (the FISTA momentum fields come with the FISTA loop)."""
+    """Solver carry: device tensors plus the last check's host scalars.
+    The FISTA momentum fields (x_prev, r_prev, t_mom: a 0-d tensor on the
+    device, so that the restart test needs no host sync) stay at their
+    start values in BCD."""
 
     x: torch.Tensor
     r: torch.Tensor          # A x - b, maintained incrementally or refreshed
@@ -91,6 +97,9 @@ class SolveState(NamedTuple):
     x_best: torch.Tensor     # iterate at the best check
     best_gap: float
     best_primal: float
+    x_prev: torch.Tensor | None = None
+    r_prev: torch.Tensor | None = None
+    t_mom: torch.Tensor | None = None
 
 
 def count_nnz(x: torch.Tensor) -> torch.Tensor:

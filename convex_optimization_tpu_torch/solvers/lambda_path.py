@@ -46,6 +46,12 @@ class PathResult(NamedTuple):
                                     # are per point and overlap)
 
 
+#: path methods of the JAX package still to port (``solve`` runs FISTA/ISTA
+#: at one lambda; their warm-started path is not ported)
+_PATH_NOT_PORTED = dict(NOT_PORTED, fista="queue 1, item 10",
+                        ista="queue 1, item 10")
+
+
 def path_grid(lmax: float, path_len: int, lam_min_frac: float,
               dtype: torch.dtype, device) -> torch.Tensor:
     """Geometric grid 0.95 lam_max -> lam_min_frac lam_max (just below
@@ -82,10 +88,10 @@ def lambda_path(
     if mesh is not None:
         raise NotImplementedError(
             "sharded paths are not ported yet (ROADMAP queue 1, item 13)")
-    if method in NOT_PORTED:
+    if method in _PATH_NOT_PORTED:
         raise NotImplementedError(
-            f"method {method!r} is not ported yet "
-            f"(ROADMAP {NOT_PORTED[method]})")
+            f"the {method!r} path is not ported yet "
+            f"(ROADMAP {_PATH_NOT_PORTED[method]})")
     if method not in ("bcd", "bcd_pallas", "bcd_batch"):
         raise ValueError(f"unknown method {method!r}")
 

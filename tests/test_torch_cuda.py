@@ -1,12 +1,14 @@
-"""The port's CUDA kernels (K1-K7, K9) against their plain PyTorch versions
-on the card.  Every test needs a CUDA card and skips without one.  This file
-imports neither jax nor the JAX package, so it runs on a machine without
+"""The port's CUDA kernels (K1-K9) against their plain PyTorch versions
+on the card, and the column-sharded solvers as two gloo ranks sharing it.
+Every test needs a CUDA card and skips without one.  This file imports
+neither jax nor the JAX package, so it runs on a machine without
 them: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
 
 Tolerances: the kernels and the plain versions (cuBLAS matvecs with TF32
 off) sum in different orders in f32, so results differ by rounding only:
-relative 1e-5 for one pass over A (K2, K3, one K1, K5 or K9 sweep, K6,
-K7),
+relative 1e-5 for one pass over A (K2, K3, one K1, K5, K8 or K9 sweep,
+K6, K7; K8's payload scalars to 1e-4 of their magnitude sums, sums of n
+terms in another order),
 1e-4 for the 48-iteration power estimate (K4).  K5 with a 0/1 row mask
 equals K5 on a masked copy of A bit for bit (torch.equal).
 """
@@ -22,6 +24,11 @@ from convex_optimization_tpu_torch.ops.bcd_sweep import (
     block_steps,
     sweep_t,
     sweep_t_plain,
+)
+from convex_optimization_tpu_torch.ops.bcd_sweep_slab import (
+    merge_payload,
+    sweep_slab_t,
+    sweep_slab_t_plain,
 )
 from convex_optimization_tpu_torch.ops.bcd_sweep_tiled import (
     sweep_tiled_t,
@@ -304,9 +311,10 @@ def test_wrappers_count_launches(cuda):
     neg_at_r_batch_t(p.A_t, R, X, 0.0)
     sweep_t(p.A_t, x, -p.b, steps, None, Penalty(0.05), 0.0)
     sweep_tiled_t(p.A_t, x, -p.b, steps, None, Penalty(0.05), 0.0)
+    sweep_slab_t(p.A_t, x, -p.b, steps, None, Penalty(0.05), 0.0)
     for name in ("ax_minus_b_t", "neg_at_r_t", "block_power_t",
                  "batch_sweep_t", "ax_minus_b_batch_t", "neg_at_r_batch_t",
-                 "sweep_t", "sweep_tiled_t"):
+                 "sweep_t", "sweep_tiled_t", "sweep_slab_t"):
         assert _build.launches[name] == before.get(name, 0) + 1
 
 
@@ -371,3 +379,95 @@ def test_group_solve_on_card_routes_and_certifies(cuda, block_size, kernel):
     pr = cot.polish_support(inst.problem, res.x, tol=1e-6, A_host=A,
                             b_host=b)
     assert pr.rel_gap <= 1e-6
+
+
+@pytest.mark.parametrize("kind", ["l1", "nonneg_l1", "group_l2"])
+@pytest.mark.parametrize("m,n,B", SHAPES)
+def test_slab_sweep_kernel_matches_plain(cuda, m, n, B, kind):
+    """K8 against its plain version, one sweep from a nonzero start with
+    a partly-zero mask: x and r as K1, the payload's dr against the
+    plain dr, its scalars against the merge's expressions on K8's own x
+    and r."""
+    p, x = _data(m, n, B, cuda)
+    pen = (_group_penalty(n, B, cuda) if kind == "group_l2"
+           else Penalty(lam1=0.05, kind=kind))
+    if kind == "nonneg_l1":
+        x = x.abs()
+    mask = torch.rand(n, generator=torch.Generator().manual_seed(4)) > 0.05
+    mask = mask.to(cuda)
+    r = ax_minus_b_t_plain(p.A_t, x, p.b)
+    steps = block_steps(block_power_t_plain(p.A_t), p.lam2, 0.5)
+    x_k, r_k, pay_k = sweep_slab_t(p.A_t, x, r, steps, mask, pen, p.lam2)
+    x_p, r_p, pay_p = sweep_slab_t_plain(p.A_t, x, r, steps, mask, pen,
+                                         p.lam2)
+    xs = max(1.0, float(x_p.abs().max()))
+    rn = float(torch.linalg.vector_norm(r_p))
+    assert float((x_k - x_p).abs().max()) <= 1e-5 * xs
+    assert float(torch.linalg.vector_norm(r_k - r_p)) <= 1e-5 * rn
+    assert float(torch.linalg.vector_norm(pay_k[:m] - pay_p[:m])) <= \
+        1e-5 * rn
+    assert bool((x_k[~mask] == 0).all())
+    want = merge_payload(x, x_k, r, r_k, pen)
+    dx = x_k - x
+    scale = torch.stack([(x * dx).abs().sum(), (dx * dx).sum(),
+                         float(pen.lam1) * dx.abs().sum() * (
+                             1.0 if pen.weights is None
+                             else float(pen.weights.max()))])
+    assert bool(((pay_k[m:] - want[m:]).abs() <= 1e-4 * scale).all())
+    assert float(scale[1]) > 0
+
+
+def test_slab_kernel_refuses_the_tile_k9_takes(cuda):
+    p, x = _data(4096, 2000 * 4, 2000, cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        sweep_slab_t(p.A_t, x, -p.b, torch.ones(4, device=cuda), None,
+                     Penalty(lam1=0.05, kind="l1"), 0.0)
+
+
+def test_sharded_solves_on_card_match_cpu(cuda, tmp_path):
+    """Two gloo ranks sharing the card run sharded BCD (K8) and FISTA
+    through solve(mesh=...); the same on two CPU ranks (plain versions):
+    step counts within one check, x close, K8 launched in each card rank
+    and K1 in none."""
+    from convex_optimization_tpu_torch.core.datagen import (
+        make_lasso_instance_host,
+    )
+    from convex_optimization_tpu_torch.parallel.launch import run_ranks
+    from test_torch_sharded_ranks import solve_job
+
+    inst, A, b = make_lasso_instance_host(6, 200, 800, device="cpu")
+    pen = dict(penalty_kind="l1", lam1=float(inst.problem.penalty.lam1))
+    runs = [dict(method="bcd_pallas", api=True,
+                 cfg=dict(tol=1e-6, max_iters=4000, gap_every=10,
+                          stall_checks=15, block_size=40)),
+            dict(method="fista", api=True,
+                 cfg=dict(tol=1e-5, max_iters=4000, gap_every=10,
+                          stall_checks=15))]
+    card = run_ranks(solve_job, 2, tmp_path / "card", A, b, pen, runs,
+                     device="cuda:0", backend="gloo", timeout_s=300)
+    host = run_ranks(solve_job, 2, tmp_path / "cpu", A, b, pen, runs,
+                     device="cpu", backend="gloo", timeout_s=300)
+    for rank in range(2):
+        assert card[rank][0]["launches"].get("sweep_slab_t", 0) > 0
+        assert card[rank][0]["launches"].get("sweep_t", 0) == 0
+    for c, h in zip(card[0], host[0]):
+        assert abs(c["k"] - h["k"]) <= 10
+        np.testing.assert_allclose(c["x"], h["x"], atol=5e-4)
+
+
+def test_gloo_collectives_on_card_are_exact_or_raise(cuda, tmp_path):
+    """Two gloo ranks on CUDA tensors: every collective the psum path
+    needs is exact; the ring and the reduce-scatter raise on both ranks
+    alike, up front (gloo would close the connections or abort), and the
+    group still works after them."""
+    from convex_optimization_tpu_torch.parallel.launch import run_ranks
+    from test_torch_sharded_ranks import card_collectives_job
+
+    out = run_ranks(card_collectives_job, 2, tmp_path, device="cuda:0",
+                    backend="gloo", timeout_s=120, collective_timeout_s=30)
+    for r in out:
+        for name in ("psum", "pmax", "broadcast0", "all_gather",
+                     "psum_after"):
+            assert r[name] == 0.0, (name, r)
+        for name in ("ring", "reduce_scatter"):
+            assert r[name].startswith("RuntimeError: gloo takes no CUDA"), r

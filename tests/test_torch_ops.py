@@ -327,9 +327,9 @@ def test_ctypes_declarations_match_the_c_entry_points():
     _build._declare(lib)
     found = _c_params(_build.sources(), re.compile(
         r"^(?:int|const char\*) (cot_\w+)\(([^)]*)\)\s*\{", re.M))
-    assert len(found) >= 12
-    assert {"cot_sweep_t", "cot_sweep_tiled_plan",
-            "cot_sweep_tiled_t"} <= set(found)
+    assert len(found) >= 14
+    assert {"cot_sweep_t", "cot_sweep_tiled_plan", "cot_sweep_tiled_t",
+            "cot_sweep_slab_grid", "cot_sweep_slab_t"} <= set(found)
     for name, n_params in found.items():
         assert len(getattr(lib, name).argtypes) == n_params, name
 
