@@ -28,10 +28,12 @@ non-zero without one.  Phases, each of which fails the run if it fails:
      column at the final polish residual;
   5. the batched kernels (K5 sweep, K6 refresh, K7 witness) against their
      plain versions, at a small shape and on config 2's A_t (625 x 80 x
-     5000) with L = 10: K5 unmasked as the lambda path calls it, with a
-     partly-zero keep mask and a fold row mask as CV calls it, the masked
-     K5 against K5 on a masked copy of A_t (torch.equal), K5 at L = 1
-     against K1; K5 timed at L = 1, 4, 10, 16;
+     5000): K6 and K7 at L = 1, 4, 10, 16, each launched twice on the same
+     inputs (torch.equal), timed on config 2's A_t beside addmm and the
+     bound at each L (one JSON line per L); K5 at L = 10 unmasked as the
+     lambda path calls it, with a partly-zero keep mask and a fold row
+     mask as CV calls it, the masked K5 against K5 on a masked copy of A_t
+     (torch.equal), K5 at L = 1 against K1; K5 timed at L = 1, 4, 10, 16;
   6. a 500 x 2000 10-point lambda path with bcd_batch and with bcd_pallas,
      on the card and on the CPU (plain versions): every converged point
      certifies in f64, supports agree between card and CPU;
@@ -40,6 +42,8 @@ non-zero without one.  Phases, each of which fails the run if it fails:
      gap_every=10, stall_checks=10, block_size=128), every point's f64
      rel_gap <= 1e-4 (the f32 floor of this configuration), then 5-fold
      cv_lambda_path on the same instance, its refit certified the same;
+     each line carries the checks' share of the wall (K6 and K7 launches
+     times their phase-5 times at L = 10);
   8. config 4 (group lasso, 20k x 200k, 1000 groups of 200): group K1
      (B = 200) and K9 (B = 2000, a tile K1 cannot hold) against their
      plain versions at a small shape, on a 16-block slice and on the full
@@ -95,6 +99,7 @@ C2_CFG = dict(tol=1e-6, max_iters=10_000, gap_every=10, stall_checks=10,
 C2_F32_FLOOR = 1e-4          # BASELINE.md:88
 CV_K = 5
 BATCH_L = 10
+MATVEC_LS = (1, 4, BATCH_L, 16)      # the L at which K6 and K7 are checked
 # config 4: BASELINE.json:10, core/datagen.CONFIGS["config4"]
 C4_SOLVE = dict(tol=1e-6, max_iters=20_000, gap_every=10, stall_checks=15)
 C4_ROUTES = (("k1_group", 128, 200, "sweep_t"),       # name, block_size, B,
@@ -289,15 +294,93 @@ def compare_kernels(A_t, b, x_probe, keep, label: str, stats: dict,
     log(f"# kernels vs plain [{label}] A_t={tuple(A_t.shape)}: ok")
 
 
-def compare_batch_kernels(A_t, b, label: str, stats: dict,
-                          timed: bool) -> dict:
-    """K5, K6, K7 against their plain versions on one A_t at L = BATCH_L;
-    returns K5's ms per sweep by L (empty unless ``timed``).
+def compare_batch_matvecs(A_t, b, L: int, label: str, stats: dict, gen,
+                          timed: bool, card: tuple) -> None:
+    """K6 and K7 against their plain versions at one L, each launched
+    twice on the same inputs (the two results must be torch.equal); with
+    ``timed``, one JSON line of their times beside the plain versions',
+    the ``addmm`` computing the same function, and the bound at this L.
 
     Tolerances: one pass over A in another summation order, per element
     1e-5 (||A[i, :]|| ||x_l|| + |b_i|) for K6 and 1e-5 (||A_k|| ||r_l||
-    + lam2 |x|) for K7; K5 as K1 (1e-5, 1e-4 past 64 blocks); the masked
-    K5 equals K5 on a masked copy of A_t exactly."""
+    + lam2 |x|) for K7."""
+    import torch
+
+    from convex_optimization_tpu_torch.ops import bcd_sweep_batch as kb
+
+    nb, B, m = A_t.shape
+    n, dev, lam2 = nb * B, A_t.device, 0.1
+    X = torch.randn(nb, L, B, generator=gen).to(dev)
+
+    R_k = kb.ax_minus_b_batch_t(A_t, X, b)
+    R_p = kb.ax_minus_b_batch_t_plain(A_t, X, b)
+    row = torch.linalg.vector_norm(A_t, dim=(0, 1))
+    xn = torch.linalg.vector_norm(kb.rows_of(X), dim=1)
+    tol = 1e-5 * (xn[:, None] * row[None, :] + b.abs()[None, :])
+    diff = (R_k - R_p).abs()
+    require(bool((diff <= tol).all()),
+            f"{label} L={L} ax_minus_b_batch_t worst ratio "
+            f"{float((diff / tol).max())}")
+    require(bool((R_p.abs() > tol).any()),
+            f"{label} L={L} ax_minus_b_batch_t limit cannot tell R from 0")
+    require(torch.equal(R_k, kb.ax_minus_b_batch_t(A_t, X, b)),
+            f"{label} L={L} ax_minus_b_batch_t differs run to run")
+    err6 = float(diff.max())
+
+    Z_k = kb.neg_at_r_batch_t(A_t, R_p, X, lam2)
+    Z_p = kb.neg_at_r_batch_t_plain(A_t, R_p, X, lam2)
+    col = torch.linalg.vector_norm(A_t, dim=2)
+    rn = torch.linalg.vector_norm(R_p, dim=1)
+    tolz = 1e-5 * (col[:, None, :] * rn[None, :, None] + lam2 * X.abs())
+    diff = (Z_k - Z_p).abs()
+    require(bool((diff <= tolz).all()),
+            f"{label} L={L} neg_at_r_batch_t worst ratio "
+            f"{float((diff / tolz).max())}")
+    require(torch.equal(Z_k, kb.neg_at_r_batch_t(A_t, R_p, X, lam2)),
+            f"{label} L={L} neg_at_r_batch_t differs run to run")
+    err7 = float(diff.max())
+    if not timed:
+        record(stats, "ax_minus_b_batch_t", err6)
+        record(stats, "neg_at_r_batch_t", err7)
+        return
+
+    A_rows, X_rows = A_t.view(n, m), kb.rows_of(X).contiguous()
+    S, W, C, G = kb.matvec_batch_plan(dev, n, m, L)
+    k6 = (time_ms(lambda: kb.ax_minus_b_batch_t(A_t, X, b), 10),
+          time_ms(lambda: kb.ax_minus_b_batch_t_plain(A_t, X, b), 10),
+          time_ms(lambda: torch.addmm(b, X_rows, A_rows, beta=-1.0), 10),
+          (4 * m * n + 4 * L * n + 4 * m + 4 * L * m, 2 * m * n * L))
+    k7 = (time_ms(lambda: kb.neg_at_r_batch_t(A_t, R_p, X, lam2), 10),
+          time_ms(lambda: kb.neg_at_r_batch_t_plain(A_t, R_p, X, lam2), 10),
+          time_ms(lambda: torch.addmm(X_rows, R_p, A_rows.T, beta=-lam2,
+                                      alpha=-1.0), 10),
+          (4 * m * n + 4 * L * m + 8 * L * n, 2 * m * n * L))
+    at_L: dict = {}
+    record(at_L, "k6", err6, *k6)
+    record(at_L, "k7", err7, *k7)
+    if L == BATCH_L:
+        record(stats, "ax_minus_b_batch_t", err6, *k6)
+        record(stats, "neg_at_r_batch_t", err7, *k7)
+    # the partials each kernel writes and reads back (not in the bound:
+    # they are not inputs or outputs of the function)
+    at_L["k6"]["partials_bytes"] = 2 * 4 * S * L * m
+    at_L["k7"]["partials_bytes"] = 2 * 4 * C * n * L if C > 1 else 0
+    print(json.dumps({
+        "metric": f"k6_k7_ms_{label}_L{L}_A_t_{nb}x{B}x{m}",
+        "L": L, "plan": dict(k6_slices=S, k7_chunk=W, k7_chunks=C,
+                             k7_ctas_per_chunk=G),
+        "k6": at_L["k6"], "k7": at_L["k7"],
+        "gpu": card[0], "power_limit": card[1]}), flush=True)
+
+
+def compare_batch_kernels(A_t, b, label: str, stats: dict, timed: bool,
+                          card: tuple) -> dict:
+    """K6 and K7 at L = 1, 4, 10, 16 (compare_batch_matvecs), then K5
+    against its plain version at L = BATCH_L; returns K5's ms per sweep by
+    L (empty unless ``timed``).
+
+    Tolerances: K5 as K1 (1e-5, 1e-4 past 64 blocks); the masked K5 equals
+    K5 on a masked copy of A_t exactly."""
     import numpy as np
     import torch
 
@@ -309,47 +392,8 @@ def compare_batch_kernels(A_t, b, label: str, stats: dict,
     nb, B, m = A_t.shape
     n, L, dev = nb * B, BATCH_L, A_t.device
     gen = torch.Generator(device="cpu").manual_seed(SEED + 1)
-    lam2 = 0.1
-
-    # K6
-    X = torch.randn(nb, L, B, generator=gen).to(dev)
-    R_k = kb.ax_minus_b_batch_t(A_t, X, b)
-    R_p = kb.ax_minus_b_batch_t_plain(A_t, X, b)
-    row = torch.linalg.vector_norm(A_t, dim=(0, 1))
-    xn = torch.linalg.vector_norm(kb.rows_of(X), dim=1)
-    tol = 1e-5 * (xn[:, None] * row[None, :] + b.abs()[None, :])
-    diff = (R_k - R_p).abs()
-    require(bool((diff <= tol).all()),
-            f"{label} ax_minus_b_batch_t worst ratio "
-            f"{float((diff / tol).max())}")
-    require(bool((R_p.abs() > tol).any()),
-            f"{label} ax_minus_b_batch_t limit cannot tell R from 0")
-    A_rows, X_rows = A_t.view(n, m), kb.rows_of(X).contiguous()
-    times = (time_ms(lambda: kb.ax_minus_b_batch_t(A_t, X, b), 10),
-             time_ms(lambda: kb.ax_minus_b_batch_t_plain(A_t, X, b), 10),
-             time_ms(lambda: torch.addmm(b, X_rows, A_rows, beta=-1.0), 10),
-             (4 * m * n + 4 * L * n + 4 * m + 4 * L * m, 2 * m * n * L)) \
-        if timed else ()
-    record(stats, "ax_minus_b_batch_t", float(diff.max()), *times)
-
-    # K7
-    Z_k = kb.neg_at_r_batch_t(A_t, R_p, X, lam2)
-    Z_p = kb.neg_at_r_batch_t_plain(A_t, R_p, X, lam2)
-    col = torch.linalg.vector_norm(A_t, dim=2)
-    rn = torch.linalg.vector_norm(R_p, dim=1)
-    tolz = 1e-5 * (col[:, None, :] * rn[None, :, None] + lam2 * X.abs())
-    diff = (Z_k - Z_p).abs()
-    require(bool((diff <= tolz).all()),
-            f"{label} neg_at_r_batch_t worst ratio "
-            f"{float((diff / tolz).max())}")
-    times = (time_ms(lambda: kb.neg_at_r_batch_t(A_t, R_p, X, lam2), 10),
-             time_ms(lambda: kb.neg_at_r_batch_t_plain(A_t, R_p, X, lam2),
-                     10),
-             time_ms(lambda: torch.addmm(X_rows, R_p, A_rows.T, beta=-lam2,
-                                         alpha=-1.0), 10),
-             (4 * m * n + 4 * L * m + 8 * L * n, 2 * m * n * L)) \
-        if timed else ()
-    record(stats, "neg_at_r_batch_t", float(diff.max()), *times)
+    for Lm in MATVEC_LS:
+        compare_batch_matvecs(A_t, b, Lm, label, stats, gen, timed, card)
 
     # K5 from X = 0, R = -b (as a path starts), l1 on a geometric grid
     zeros_n = torch.zeros(n, device=dev)
@@ -480,7 +524,13 @@ def small_path_reference(device) -> None:
     log(f"# small path reference 500x2000: {out}")
 
 
-def config2_path(problem, gpu: str, power: str) -> dict:
+def checks_s(launches: dict, stats: dict) -> float:
+    """Seconds of K6 and K7 in a run: launches times their timed ms."""
+    return sum(launches.get(k, 0) * stats[k]["ms"]
+               for k in ("ax_minus_b_batch_t", "neg_at_r_batch_t")) / 1e3
+
+
+def config2_path(problem, gpu: str, power: str, stats: dict) -> dict:
     """Config 2's 10-point bcd_batch lambda path; every point's f64
     rel_gap must reach the f32 floor.  Returns the launch counts."""
     import numpy as np
@@ -518,7 +568,6 @@ def config2_path(problem, gpu: str, power: str) -> dict:
     require(res.xs.shape == (C2_LEN, C2_N)
             and bool(torch.isfinite(res.xs).all()), "config-2 path x")
     f64 = certify(problem, res, cfg.tol)
-    require(max(f64) <= C2_F32_FLOOR, f"config-2 f64 gaps {f64}")
     passes = 1.0 + 2.0 / cfg.gap_every
     sweep_s = wall - k4_s
     print(json.dumps({
@@ -537,13 +586,15 @@ def config2_path(problem, gpu: str, power: str) -> dict:
         "nnz": (res.xs != 0).sum(dim=1).tolist(),
         "lambdas": np.asarray(res.lambdas.cpu()).tolist(),
         "launches": launches,
+        "checks_share": checks_s(launches, stats) / wall,
         "gpu": gpu,
         "power_limit": power,
     }), flush=True)
+    require(max(f64) <= C2_F32_FLOOR, f"config-2 f64 gaps {f64}")
     return launches
 
 
-def config2_cv(problem, gpu: str, power: str) -> None:
+def config2_cv(problem, gpu: str, power: str, stats: dict) -> None:
     """CV_K-fold CV over config 2's 10-point grid; the refit at the chosen
     lambda must reach the f32 floor in f64."""
     import torch
@@ -582,6 +633,7 @@ def config2_cv(problem, gpu: str, power: str) -> None:
         "refit_f64_rel_gap": gap,
         "mean_mse": res.mean_mse.tolist(),
         "launches": launches,
+        "checks_share": checks_s(launches, stats) / wall,
         "gpu": gpu,
         "power_limit": power,
     }), flush=True)
@@ -1324,8 +1376,9 @@ def main() -> None:
     del res, pr, A_t80
 
     # 5. batched kernels vs plain versions
+    card2 = (gpu_name, power_limit)
     compare_batch_kernels(A_small.view(32, 32, 256), b_small, "small", stats,
-                          timed=False)
+                          False, card2)
     t0 = time.perf_counter()
     inst2, _, _ = make_lasso_instance_host(C2_SEED, C2_M, C2_N,
                                            device=device)
@@ -1333,7 +1386,7 @@ def main() -> None:
     log(f"# datagen {C2_M}x{C2_N}: {time.perf_counter() - t0:.2f} s")
     p2 = inst2.problem
     by_L = compare_batch_kernels(p2.with_block(80).A_t, p2.b, "config2",
-                                 stats, timed=True)
+                                 stats, True, card2)
     print(json.dumps({
         "metric": f"k5_ms_per_sweep_by_L_{C2_M}x{C2_N}_B80",
         "k5_ms": {str(k): v for k, v in by_L.items() if k != "k1"},
@@ -1346,8 +1399,8 @@ def main() -> None:
     small_path_reference(device)
 
     # 7. config 2: the lambda path, then K-fold CV
-    path_launches = config2_path(p2, gpu_name, power_limit)
-    config2_cv(p2, gpu_name, power_limit)
+    path_launches = config2_path(p2, gpu_name, power_limit, stats)
+    config2_cv(p2, gpu_name, power_limit, stats)
     del p2, inst2
     torch.cuda.empty_cache()
 

@@ -125,8 +125,9 @@ def _declare(lib) -> None:
                                       _I, _I, _VP]
     lib.cot_ax_minus_b_batch_t.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I,
                                            _I, _I, _I, _VP]
-    lib.cot_neg_at_r_batch_t.argtypes = [_VP, _VP, _VP, _VP, _I, _I, _I, _I,
-                                         _Fl, _VP]
+    lib.cot_matvec_batch_plan.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+    lib.cot_neg_at_r_batch_t.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I,
+                                         _I, _I, _I, _I, _I, _Fl, _VP]
     lib.cot_sweep_slab_grid.argtypes = [_I, _I, ctypes.POINTER(_I)]
     lib.cot_sweep_slab_t.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                                      _VP, _VP, _I, _I, _I, _I, _Fl, _Fl, _I,
@@ -139,7 +140,8 @@ def _declare(lib) -> None:
                lib.cot_ax_minus_b_t,
                lib.cot_neg_at_r_t, lib.cot_block_power_t,
                lib.cot_batch_sweep_grid, lib.cot_batch_sweep_t,
-               lib.cot_ax_minus_b_batch_t, lib.cot_neg_at_r_batch_t):
+               lib.cot_matvec_batch_plan, lib.cot_ax_minus_b_batch_t,
+               lib.cot_neg_at_r_batch_t):
         fn.restype = _I
 
 

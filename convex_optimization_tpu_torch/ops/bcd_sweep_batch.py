@@ -36,14 +36,15 @@ from convex_optimization_tpu_torch.ops.matvec import _check, _on_cuda
 #: group lambda path, ROADMAP queue 1, item 8)
 _KIND_CODE = {"l1": 0, "nonneg_l1": 1}
 
-#: most path points one batched launch carries (K5-K7 keep L accumulators
-#: per thread in registers, sized for this)
+#: most path points one batched launch carries (K5 keeps L accumulators
+#: per thread in registers, sized for this; K6 and K7 are templated on L
+#: rounded up to 4, up to it)
 MAX_BATCH = 16
 
 #: (device index, B, m, L) -> K5 cooperative grid size, 0 when no fit
 _grid_cache: dict = {}
-
-_MV_THREADS = 256
+#: (device index, n, m, L) -> K6/K7 launch plan (matvec_batch_plan)
+_plan_cache: dict = {}
 
 
 def _flat(A_t: torch.Tensor) -> torch.Tensor:
@@ -206,7 +207,23 @@ def batch_sweep_t(A_t: torch.Tensor, X: torch.Tensor, R: torch.Tensor,
     return X_out, R_out
 
 
-# ------------------------------------------------------------------ K6 ----
+# -------------------------------------------------------------- K6, K7 ----
+
+def matvec_batch_plan(device: torch.device, n: int, m: int,
+                      L: int) -> tuple[int, int, int, int]:
+    """K6's and K7's launch plan at (n, m, L) on ``device``, from the C
+    side: (K6 slices S, K7 chunk width W, K7 chunks C, K7 CTAs per
+    chunk).  K6 writes S partial rows per output row; K7 keeps W columns
+    of R in shared memory and writes C partials per output when C > 1."""
+    key = (device.index, n, m, L)
+    if key not in _plan_cache:
+        plan = (ctypes.c_int * 4)()
+        with torch.cuda.device(device):
+            _build.check(_build.load().cot_matvec_batch_plan(n, m, L, plan),
+                         "cot_matvec_batch_plan")
+        _plan_cache[key] = tuple(plan)
+    return _plan_cache[key]
+
 
 def ax_minus_b_batch_t_plain(A_t: torch.Tensor, X: torch.Tensor,
                              b: torch.Tensor) -> torch.Tensor:
@@ -226,10 +243,7 @@ def ax_minus_b_batch_t(A_t: torch.Tensor, X: torch.Tensor,
     for name, t, shape in (("A_t", A_t, A_t.shape), ("X", X, (nb, L, B)),
                            ("b", b, (m,))):
         _check(name, t, shape, A_t.device)
-    n = nb * B
-    sms = torch.cuda.get_device_properties(A_t.device).multi_processor_count
-    tiles = -(-m // _MV_THREADS)
-    slices = max(1, min(n, -(-8 * sms // tiles)))
+    slices = matvec_batch_plan(A_t.device, nb * B, m, L)[0]
     R = torch.empty((L, m), dtype=torch.float32, device=A_t.device)
     partials = torch.empty((slices, L, m), dtype=torch.float32,
                            device=A_t.device)
@@ -241,8 +255,6 @@ def ax_minus_b_batch_t(A_t: torch.Tensor, X: torch.Tensor,
     _build.launches["ax_minus_b_batch_t"] += 1
     return R
 
-
-# ------------------------------------------------------------------ K7 ----
 
 def neg_at_r_batch_t_plain(A_t: torch.Tensor, R: torch.Tensor,
                            X: torch.Tensor, lam2: float) -> torch.Tensor:
@@ -263,10 +275,14 @@ def neg_at_r_batch_t(A_t: torch.Tensor, R: torch.Tensor, X: torch.Tensor,
     for name, t, shape in (("A_t", A_t, A_t.shape), ("R", R, (L, m)),
                            ("X", X, (nb, L, B))):
         _check(name, t, shape, A_t.device)
+    _, W, C, G = matvec_batch_plan(A_t.device, nb * B, m, L)
     Z = torch.empty_like(X)
+    partials = (torch.empty((C,) + tuple(X.shape), dtype=torch.float32,
+                            device=A_t.device) if C > 1 else None)
     err = _build.load().cot_neg_at_r_batch_t(
-        A_t.data_ptr(), R.data_ptr(), X.data_ptr(), Z.data_ptr(), nb, B, m,
-        L, float(lam2), _build.stream_ptr(A_t.device))
+        A_t.data_ptr(), R.data_ptr(), X.data_ptr(), Z.data_ptr(),
+        None if partials is None else partials.data_ptr(), nb, B, m, L, W,
+        C, G, float(lam2), _build.stream_ptr(A_t.device))
     _build.check(err, "neg_at_r_batch_t")
     _build.launches["neg_at_r_batch_t"] += 1
     return Z

@@ -10,7 +10,8 @@ relative 1e-5 for one pass over A (K2, K3, one K1, K5, K8 or K9 sweep,
 K6, K7; K8's payload scalars to 1e-4 of their magnitude sums, sums of n
 terms in another order),
 1e-4 for the 48-iteration power estimate (K4).  K5 with a 0/1 row mask
-equals K5 on a masked copy of A bit for bit (torch.equal).
+equals K5 on a masked copy of A bit for bit (torch.equal); K6 and K7 give
+the same bits on two launches (torch.equal).
 """
 
 import numpy as np
@@ -39,6 +40,7 @@ from convex_optimization_tpu_torch.ops.bcd_sweep_batch import (
     ax_minus_b_batch_t_plain,
     batch_sweep_t,
     batch_sweep_t_plain,
+    matvec_batch_plan,
     neg_at_r_batch_t,
     neg_at_r_batch_t_plain,
     rows_of,
@@ -207,10 +209,33 @@ def _sweeps_close(X_k, R_k, X_p, R_p, tol=1e-5):
         tol * float(torch.linalg.vector_norm(R_p))
 
 
-@pytest.mark.parametrize("m,n,B", SHAPES)
-def test_batch_matvec_kernels_match_plain(cuda, m, n, B):
+#: K6/K7's edges beside SHAPES: a ragged m (the scalar-load instances)
+#: with 13 blocks, and a ragged m longer than one of K7's R chunks (at
+#: most 2560 columns, so m = 10_000 takes several on the vector instances)
+BATCH_MV_SHAPES = SHAPES + [(1001, 80 * 13, 80), (6001, 80 * 7, 80)]
+BATCH_MV_LS = [1, 3, 5, 10, 16]
+
+
+def test_batch_matvec_plan_reaches_the_edges(cuda):
+    """The shapes of the K6/K7 tests cover what the plan makes of them:
+    slices that do not split n evenly, and K7 with more than one R chunk
+    on both the vector and the scalar instances."""
+    uneven = multi_vec = multi_scalar = False
+    for m, n, B in BATCH_MV_SHAPES:
+        for L in BATCH_MV_LS:
+            S, W, C, _ = matvec_batch_plan(cuda, n, m, L)
+            uneven |= n % S != 0
+            assert W % 128 == 0 and W * C >= m > W * (C - 1)
+            multi_vec |= C > 1 and m % 4 == 0
+            multi_scalar |= C > 1 and m % 4 != 0
+    assert uneven and multi_vec and multi_scalar
+
+
+@pytest.mark.parametrize("L", BATCH_MV_LS)
+@pytest.mark.parametrize("m,n,B", BATCH_MV_SHAPES)
+def test_batch_matvec_kernels_match_plain(cuda, m, n, B, L):
     p, _ = _data(m, n, B, cuda)
-    X, R, _, _, _, _ = _batch(p, 10)
+    X, R, _, _, _, _ = _batch(p, L)
     R_k = ax_minus_b_batch_t(p.A_t, X, p.b)
     # per element: 1e-5 (||A[i, :]|| ||x_l|| + |b_i|)
     row = torch.linalg.vector_norm(p.A_t, dim=(0, 1))
@@ -223,6 +248,20 @@ def test_batch_matvec_kernels_match_plain(cuda, m, n, B):
     rn = torch.linalg.vector_norm(R, dim=1)
     tolz = 1e-5 * (rn[None, :, None] + p.lam2 * X.abs())
     assert bool(((Z_k - Z_p).abs() <= tolz).all())
+
+
+@pytest.mark.parametrize("L", [3, 16])
+@pytest.mark.parametrize("m,n,B", [(10_000, 80 * 16, 80),
+                                   (6001, 80 * 7, 80)])
+def test_batch_matvec_kernels_are_deterministic(cuda, m, n, B, L):
+    """No atomics, fixed summation order: two launches on the same inputs
+    give the same bits."""
+    p, _ = _data(m, n, B, cuda)
+    X, R, _, _, _, _ = _batch(p, L)
+    assert torch.equal(ax_minus_b_batch_t(p.A_t, X, p.b),
+                       ax_minus_b_batch_t(p.A_t, X, p.b))
+    assert torch.equal(neg_at_r_batch_t(p.A_t, R, X, p.lam2),
+                       neg_at_r_batch_t(p.A_t, R, X, p.lam2))
 
 
 @pytest.mark.parametrize("kind", ["l1", "nonneg_l1"])

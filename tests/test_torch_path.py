@@ -192,12 +192,21 @@ def test_masked_batch_sweep_is_exact_vs_masked_copy():
     _close(X1, R1, Xj, Rj, 1e-5)
 
 
-def test_batch_matvecs_plain_match_jax():
-    A, b, _, _, rng = _arrays(13)
-    A_t = _A_t(A)
-    L = 4
+@pytest.mark.parametrize("m", [M, M - 3])
+@pytest.mark.parametrize("L", [1, 10, MAX_BATCH])
+def test_batch_matvecs_plain_match_jax(L, m):
+    """The plain K6/K7 (the card's oracles) against the JAX kernels at the
+    smallest, the config-2 and the largest L the CUDA kernels cover, and
+    at a ragged m (m % 4 != 0), where the CUDA kernels load A as scalars:
+    the card tests (tests/test_torch_cuda.py) hold those instances to
+    these oracles."""
+    rng = np.random.default_rng(13)
+    A = rng.standard_normal((N, m)).astype(np.float32).T
+    A /= np.linalg.norm(A, axis=0, keepdims=True)
+    b = rng.standard_normal(m).astype(np.float32)
+    A_t = np.ascontiguousarray(A.T).reshape(NB, B, m)
     X = rng.standard_normal((NB, L, B)).astype(np.float32)
-    R = rng.standard_normal((L, M)).astype(np.float32)
+    R = rng.standard_normal((L, m)).astype(np.float32)
     got = ax_minus_b_batch_t(_t(A_t), _t(X), _t(b)).numpy()
     want = np.asarray(j_ax_minus_b_batch_t(jnp.asarray(A_t), jnp.asarray(X),
                                            jnp.asarray(b), interpret=True))
