@@ -40,19 +40,28 @@ non-zero without one.  Phases, each of which fails the run if it fails:
   7. config 2 (5k x 50k, make_lasso_instance_host(0, ...)): the 10-point
      lambda_path(method="bcd_batch", tol=1e-6, max_iters=10000,
      gap_every=10, stall_checks=10, block_size=128), every point's f64
-     rel_gap <= 1e-4 (the f32 floor of this configuration), then 5-fold
-     cv_lambda_path on the same instance, its refit certified the same;
-     each line carries the checks' share of the wall (K6 and K7 launches
-     times their phase-5 times at L = 10);
+     rel_gap <= 1e-4 (the f32 floor of this configuration); the same path
+     with lambda_path's default method, FISTA (K2 and K3 every step), each
+     converged point certified the same, its wall beside bcd_batch's; then
+     3-fold cv_lambda_path on the same instance, its refit certified the
+     same; the bcd_batch lines carry the checks' share of the wall (K6 and
+     K7 launches times their phase-5 times at L = 10);
   8. config 4 (group lasso, 20k x 200k, 1000 groups of 200): group K1
-     (B = 200) and K9 (B = 2000, a tile K1 cannot hold) against their
-     plain versions at a small shape, on a 16-block slice and on the full
-     A_t, timed with CUDA events; a 4096 x 4000 group solve + polish on the
-     card through both routes against the same on the CPU; then two
-     certified solves, solve(bcd_pallas, tol=1e-6, gap_every=10,
+     (B = 200) and K9 (B = 2000, a tile K1 cannot hold), and K5's group
+     prox at L = 10 (B = 200, random weights, unmasked and with a keep
+     mask and a fold row mask; the masked K5 against K5 on a masked copy,
+     torch.equal, below 65 blocks) against their plain versions at a small
+     shape, on a 16-block slice and on the full A_t, timed with CUDA
+     events; a 4096 x 4000 group solve + polish on the card through both
+     routes against the same on the CPU, and 3-fold group CV
+     (refit=False) on the same instance on the card against the CPU; then
+     two certified solves, solve(bcd_pallas, tol=1e-6, gap_every=10,
      stall_checks=15) with block_size=128 (B = 200: K1 + group prox) and
      block_size=3200 (B = 2000: K9), each polished by the group polish to
-     an f64 rel_gap <= 1e-6;
+     an f64 rel_gap <= 1e-6; then the 10-point group lambda path
+     (bcd_batch: K5's group prox, K6, K7) down to 0.1 lam_max, K5 launched
+     once per sweep, every point's f64 rel_gap <= 1e-4, the last point
+     polished to <= 1e-6;
   9. K8 (the column-sharded slab sweep) against its plain version: at a
      small shape with weighted group_l2 and a partly-zero mask and with
      nonneg_l1, on a 64-block slice of rank 0's slab of the headline at
@@ -70,7 +79,11 @@ non-zero without one.  Phases, each of which fails the run if it fails:
      block_size=128), x gathered and polished here to an f64 rel_gap <=
      1e-6, K8 launched in every rank and K1 in none; then a world-size-1
      NCCL group against the single-device solve, and a 2000 x 10000
-     single-device FISTA on the card against the CPU.
+     single-device FISTA on the card against the CPU;
+  11. config 3 (nonneg elastic net, lam2 1e-3, 10k x 100k): solve(
+     bcd_pallas, ..., screen_every=1) with gap-safe screening at every
+     check, some columns screened at the last check, polished to an f64
+     rel_gap <= 1e-6.
 
 Every path reads the launch counts set to 0 just before it.  Prints a JSON
 line per measured phase, one for the kernels (each with its time, the
@@ -97,13 +110,24 @@ C2_SEED, C2_M, C2_N, C2_LEN = 0, 5_000, 50_000, 10
 C2_CFG = dict(tol=1e-6, max_iters=10_000, gap_every=10, stall_checks=10,
               block_size=128)
 C2_F32_FLOOR = 1e-4          # BASELINE.md:88
-CV_K = 5
+CV_K = 3                     # cut from 5 folds for the run's time
 BATCH_L = 10
 MATVEC_LS = (1, 4, BATCH_L, 16)      # the L at which K6 and K7 are checked
 # config 4: BASELINE.json:10, core/datagen.CONFIGS["config4"]
 C4_SOLVE = dict(tol=1e-6, max_iters=20_000, gap_every=10, stall_checks=15)
 C4_ROUTES = (("k1_group", 128, 200, "sweep_t"),       # name, block_size, B,
              ("k9", 3200, 2000, "sweep_tiled_t"))     # the sweep it runs
+# config 4's group lambda path: 10 points down to config 4's own lambda
+# (0.1 lam_max), not 0.01: the depth is cut for the run's time
+C4_PATH = dict(tol=1e-6, max_iters=2000, gap_every=10, stall_checks=10)
+C4_PATH_LEN, C4_LAM_MIN = 10, 0.1
+GROUP_B = 200                # config 4's K1 block (pick_block_size_t)
+# the small group CV, card against CPU: small_group_reference's instance
+GROUP_CV = dict(tol=1e-5, max_iters=2000, gap_every=10, stall_checks=10)
+GROUP_CV_LEN = 5
+# config 3: BASELINE.json:9, the settings of scripts/measure_config3.py
+C3_SEED, C3_LAM2 = 0, 1e-3
+C3_SOLVE = dict(SOLVE_KW, screen_every=1)
 # the column-sharded path (phase 10): SHARD_P gloo ranks share the one card
 SHARD_P = 2
 SHARD_SMALL = (1, 500, 2000)                           # seed, m, n
@@ -373,6 +397,65 @@ def compare_batch_matvecs(A_t, b, L: int, label: str, stats: dict, gen,
         "gpu": card[0], "power_limit": card[1]}), flush=True)
 
 
+def sweep_err(label: str, what: str, xk, rk, xp, rp, tol: float) -> float:
+    """One sweep against its plain version: x to ``tol`` of max(1, |x|),
+    r to ``tol`` of ||r|| (relative); returns the largest difference."""
+    import torch
+
+    ex = float((xk - xp).abs().max())
+    er = float(torch.linalg.vector_norm(rk - rp))
+    require(ex <= tol * max(1.0, float(xp.abs().max())),
+            f"{label} {what} x err {ex} (tol {tol})")
+    require(er <= tol * float(torch.linalg.vector_norm(rp)),
+            f"{label} {what} r err {er} (tol {tol})")
+    return max(ex, float((rk - rp).abs().max()))
+
+
+def check_k5(A_t, b, lam1s, steps, pen, keep, rm, label: str,
+             masked_copy: bool) -> float:
+    """K5 against its plain version from X = 0, R = -b (as a path starts):
+    unmasked as the lambda path calls it, and with the keep mask ``keep``
+    and the fold row mask ``rm`` as CV calls it; with ``masked_copy`` the
+    masked sweep against the sweep on a masked copy of A_t, bit for bit.
+    Tolerance as K1's (1e-5, 1e-4 past 64 blocks).  Returns the largest
+    difference."""
+    import torch
+
+    from convex_optimization_tpu_torch.ops import bcd_sweep_batch as kb
+
+    nb, B, m = A_t.shape
+    L = lam1s.shape[0]
+    tol = 1e-4 if nb > 64 else 1e-5
+    X0 = torch.zeros(nb, L, B, device=A_t.device)
+    R0 = (-b)[None, :].expand(L, m).contiguous()
+    R0m = (-(rm * b))[None, :].expand(L, m).contiguous()
+    what = f"batch_sweep_t {pen.kind}"
+    err = 0.0
+    for how, R_in, masks in (("unmasked", R0, (None, None)),
+                             ("masked", R0m, (keep, rm))):
+        args = (A_t, X0, R_in, steps, lam1s, 0.0, pen) + masks
+        Xk, Rk = kb.batch_sweep_t(*args)
+        Xp, Rp = kb.batch_sweep_t_plain(*args)
+        require(float(Xp.abs().max()) > 0, f"{label} {what} {how}: X is 0")
+        err = max(err, sweep_err(label, f"{what} {how}", Xk, Rk, Xp, Rp,
+                                 tol))
+    require(bool((kb.rows_of(Xk)[:, ~keep] == 0).all()),
+            f"{label} {what} kept a masked x")
+    if masked_copy:
+        A_copy = A_t * rm
+        X1, R1 = kb.batch_sweep_t(A_copy, X0, R0m, steps, lam1s, 0.0, pen,
+                                  keep)
+        X2, R2 = Xk, Rk
+        for _ in range(2):
+            X1, R1 = kb.batch_sweep_t(A_copy, X1, R1, steps, lam1s, 0.0, pen,
+                                      keep)
+            X2, R2 = kb.batch_sweep_t(A_t, X2, R2, steps, lam1s, 0.0, pen,
+                                      keep, rm)
+        require(torch.equal(X1, X2) and torch.equal(R1, R2),
+                f"{label} masked {what} differs from the masked copy")
+    return err
+
+
 def compare_batch_kernels(A_t, b, label: str, stats: dict, timed: bool,
                           card: tuple) -> dict:
     """K6 and K7 at L = 1, 4, 10, 16 (compare_batch_matvecs), then K5
@@ -402,52 +485,19 @@ def compare_batch_kernels(A_t, b, label: str, stats: dict, timed: bool,
                             dtype=torch.float32, device=dev)
     steps = k1.block_steps(mv.block_power_t_plain(A_t), 0.0)
     pen = l1(1.0)
-    sweep_tol = 1e-4 if nb > 64 else 1e-5
     keep = (torch.rand(n, generator=gen) > 0.1).to(dev)
     rm = (torch.rand(m, generator=gen) > 0.2).to(torch.float32).to(dev)
+    err = check_k5(A_t, b, lam1s, steps, pen, keep, rm, label, True)
     X0 = torch.zeros(nb, L, B, device=dev)
     R0 = (-b)[None, :].expand(L, m).contiguous()
-    R0m = (-(rm * b))[None, :].expand(L, m).contiguous()
-    err = 0.0
-
-    def check(what, Xk, Rk, Xp, Rp):
-        ex = float((Xk - Xp).abs().max())
-        er = float(torch.linalg.vector_norm(Rk - Rp))
-        require(ex <= sweep_tol * max(1.0, float(Xp.abs().max())),
-                f"{label} batch_sweep_t {what} x err {ex}")
-        require(er <= sweep_tol * float(torch.linalg.vector_norm(Rp)),
-                f"{label} batch_sweep_t {what} r err {er}")
-        return max(ex, float((Rk - Rp).abs().max()))
-
-    # as the lambda path calls it: no keep mask, no row mask
-    Xk, Rk = kb.batch_sweep_t(A_t, X0, R0, steps, lam1s, 0.0, pen)
-    Xp, Rp = kb.batch_sweep_t_plain(A_t, X0, R0, steps, lam1s, 0.0, pen)
-    err = max(err, check("unmasked", Xk, Rk, Xp, Rp))
-    # as CV calls it: partly-zero keep mask and a fold row mask
-    Xk, Rk = kb.batch_sweep_t(A_t, X0, R0m, steps, lam1s, 0.0, pen, keep, rm)
-    Xp, Rp = kb.batch_sweep_t_plain(A_t, X0, R0m, steps, lam1s, 0.0, pen,
-                                    keep, rm)
-    err = max(err, check("masked", Xk, Rk, Xp, Rp))
-    require(bool((kb.rows_of(Xk)[:, ~keep] == 0).all()),
-            f"{label} batch_sweep_t kept a masked x")
-    # the masked sweep against the sweep on a masked copy: bit for bit
-    A_copy = A_t * rm
-    X1, R1 = kb.batch_sweep_t(A_copy, X0, R0m, steps, lam1s, 0.0, pen, keep)
-    X2, R2 = Xk, Rk
-    for _ in range(2):
-        X1, R1 = kb.batch_sweep_t(A_copy, X1, R1, steps, lam1s, 0.0, pen,
-                                  keep)
-        X2, R2 = kb.batch_sweep_t(A_t, X2, R2, steps, lam1s, 0.0, pen, keep,
-                                  rm)
-    require(torch.equal(X1, X2) and torch.equal(R1, R2),
-            f"{label} masked batch_sweep_t differs from the masked copy")
-    del A_copy
     # L = 1 against K1 on the same inputs
     X5, R5 = kb.batch_sweep_t(A_t, X0[:, :1].contiguous(), R0[:1].contiguous(),
                               steps, lam1s[:1].contiguous(), 0.0, pen, keep)
     x1, r1 = k1.sweep_t(A_t, zeros_n, -b, steps, keep, l1(float(lam1s[0])),
                         0.0)
-    err = max(err, check("L=1 vs K1", X5[:, 0].reshape(n), R5[0], x1, r1))
+    err = max(err, sweep_err(label, "batch_sweep_t L=1 vs K1",
+                             X5[:, 0].reshape(n), R5[0], x1, r1,
+                             1e-4 if nb > 64 else 1e-5))
     by_L = {}
     times = ()
     if timed:
@@ -472,6 +522,64 @@ def compare_batch_kernels(A_t, b, label: str, stats: dict, timed: bool,
     log(f"# batched kernels vs plain [{label}] A_t={tuple(A_t.shape)} "
         f"L={L}: ok")
     return by_L
+
+
+def compare_group_batch(A_rows, b, gsize: int, weights, B: int, label: str,
+                        stats: dict, timed: bool, card: tuple) -> None:
+    """K5's group prox (group_l2 over groups of ``gsize`` with
+    ``weights``) against its plain version at L = BATCH_L on one (n, m)
+    A_rows in blocks of B, from X = 0, R = -b on a grid from 0.95 to 0.1
+    of the group lam_max: unmasked as the lambda path calls it, and with a
+    partly-zero keep mask and a fold row mask as CV calls it; below 65
+    blocks the masked sweep against the sweep on a masked copy of A_t
+    (torch.equal).  With ``timed``, one JSON line of its time beside the
+    plain version's and the bound.  Tolerances as K5's (1e-5, 1e-4 past
+    64 blocks)."""
+    import numpy as np
+    import torch
+
+    from convex_optimization_tpu_torch.models.penalties import group_l2, l1
+    from convex_optimization_tpu_torch.ops import bcd_sweep as k1
+    from convex_optimization_tpu_torch.ops import bcd_sweep_batch as kb
+    from convex_optimization_tpu_torch.ops import matvec as mv
+
+    n, m = A_rows.shape
+    nb, L, ng, dev = n // B, BATCH_L, n // gsize, A_rows.device
+    A_t = A_rows.view(nb, B, m)
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 6)
+    z = mv.neg_at_r_t_plain(A_t, b, torch.zeros(n, device=dev), 0.0)
+    lmax = float((torch.linalg.vector_norm(z.view(ng, gsize), dim=1)
+                  / weights).max())
+    lam1s = torch.as_tensor(np.geomspace(0.95, 0.1, L) * lmax,
+                            dtype=torch.float32, device=dev)
+    steps = k1.block_steps(mv.block_power_t_plain(A_t), 0.0)
+    pen = group_l2(1.0, ng, weights)
+    keep = (torch.rand(n, generator=gen) > 0.1).to(dev)
+    rm = (torch.rand(m, generator=gen) > 0.2).to(torch.float32).to(dev)
+    err = check_k5(A_t, b, lam1s, steps, pen, keep, rm, label, nb <= 64)
+    record(stats, "batch_sweep_t", err)
+    if timed:
+        X0 = torch.zeros(nb, L, B, device=dev)
+        R0 = (-b)[None, :].expand(L, m).contiguous()
+        at: dict = {}
+        record(at, "k5", err,
+               time_ms(lambda: kb.batch_sweep_t(A_t, X0, R0, steps, lam1s,
+                                                0.0, pen), 5),
+               time_ms(lambda: kb.batch_sweep_t_plain(
+                   A_t, X0, R0, steps, lam1s, 0.0, pen), 1), None,
+               (4 * m * n + 4 * L * (2 * n + 2 * m) + 4 * (L + nb + ng),
+                4 * m * n * L))
+        # K5 with the l1 prox on the same tile: what the group branch adds
+        l1_ms = time_ms(lambda: kb.batch_sweep_t(A_t, X0, R0, steps, lam1s,
+                                                 0.0, l1(1.0)), 5)
+        print(json.dumps({
+            "metric": f"k5_group_ms_{label}_A_t_{nb}x{B}x{m}",
+            "L": L, "gsize": gsize, "k5_group": at["k5"],
+            "k5_l1_ms_same_tile": l1_ms,
+            "gpu": card[0], "power_limit": card[1]}), flush=True)
+    torch.cuda.synchronize()
+    log(f"# group K5 vs plain [{label}] A_t={tuple(A_t.shape)} gsize="
+        f"{gsize} L={L}: ok (max err {err:.3e})")
 
 
 def certify(problem, res, tol: float) -> list:
@@ -530,9 +638,11 @@ def checks_s(launches: dict, stats: dict) -> float:
                for k in ("ax_minus_b_batch_t", "neg_at_r_batch_t")) / 1e3
 
 
-def config2_path(problem, gpu: str, power: str, stats: dict) -> dict:
+def config2_path(problem, gpu: str, power: str, stats: dict
+                 ) -> tuple[dict, float]:
     """Config 2's 10-point bcd_batch lambda path; every point's f64
-    rel_gap must reach the f32 floor.  Returns the launch counts."""
+    rel_gap must reach the f32 floor.  Returns the launch counts and the
+    wall."""
     import numpy as np
     import torch
 
@@ -591,7 +701,55 @@ def config2_path(problem, gpu: str, power: str, stats: dict) -> dict:
         "power_limit": power,
     }), flush=True)
     require(max(f64) <= C2_F32_FLOOR, f"config-2 f64 gaps {f64}")
-    return launches
+    return launches, wall
+
+
+def config2_fista_path(problem, gpu: str, power: str, bcd_wall: float
+                       ) -> None:
+    """Config 2's 10-point FISTA lambda path (lambda_path's default
+    method) with the bcd_batch path's settings: K2 and K3 launched on
+    every step, every converged point's f64 rel_gap at the f32 floor; its
+    wall beside the bcd_batch path's."""
+    import torch
+
+    import convex_optimization_tpu_torch as cot
+    from convex_optimization_tpu_torch.ops import _build
+    from convex_optimization_tpu_torch.solvers.common import SolverConfig
+
+    cfg = SolverConfig(**C2_CFG)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res = cot.lambda_path(problem, cfg, path_len=C2_LEN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    require(res.method_used == "fista", f"FISTA path ran {res.method_used}")
+    for name in ("ax_minus_b_t", "neg_at_r_t"):
+        require(launches.get(name, 0) > res.sweeps > 0,
+                f"FISTA path: {name} launches {launches.get(name, 0)} for "
+                f"{res.sweeps} steps")
+    require(res.xs.shape == (C2_LEN, C2_N)
+            and bool(torch.isfinite(res.xs).all()), "FISTA path x")
+    f64 = certify(problem, res, cfg.tol)
+    conv = res.converged.cpu().tolist()
+    print(json.dumps({
+        "metric": f"config2_lambda_path_{C2_LEN}pt_fista_{C2_M}x{C2_N}",
+        "steps": res.sweeps,
+        "iters": res.iters.tolist(),
+        "wall_s": wall,
+        "ms_per_step": 1e3 * wall / max(res.sweeps, 1),
+        "bcd_batch_wall_s": bcd_wall,
+        "converged": conv,
+        "f32_rel_gap": res.gaps.tolist(),
+        "f64_rel_gap": f64,
+        "nnz": (res.xs != 0).sum(dim=1).tolist(),
+        "launches": launches,
+        "gpu": gpu,
+        "power_limit": power,
+    }), flush=True)
+    bad = [g for g, c in zip(f64, conv) if c and g > C2_F32_FLOOR]
+    require(not bad, f"FISTA path: converged points with f64 gaps {bad}")
 
 
 def config2_cv(problem, gpu: str, power: str, stats: dict) -> None:
@@ -744,10 +902,176 @@ def small_group_reference(device) -> None:
     log(f"# small group reference 4096x4000: {out}")
 
 
+def small_group_cv(device) -> None:
+    """The same 4096 x 4000 group lasso (B = 200, two groups a block):
+    3-fold CV over a 5-point grid without the refit, through K5's group
+    prox, K6 and K7 on the card and their plain versions on the CPU: both
+    run bcd_batch, pick the same lambda, and agree on the validation MSE to
+    rtol 1e-3 (f32 paths that end on the same tolerance)."""
+    import numpy as np
+
+    import convex_optimization_tpu_torch as cot
+    from convex_optimization_tpu_torch.core.datagen import (
+        make_lasso_instance_host,
+    )
+    from convex_optimization_tpu_torch.ops import _build
+    from convex_optimization_tpu_torch.solvers.common import SolverConfig
+
+    kw = dict(penalty_kind="group_l2", ngroups=40, lam1_frac=0.05)
+    cfg = SolverConfig(**GROUP_CV)
+    runs = []
+    for dev in (device, "cpu"):
+        inst, _, _ = make_lasso_instance_host(4, 4096, 4000, device=dev, **kw)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = cot.cv_lambda_path(inst.problem, cfg, k=3, path_len=GROUP_CV_LEN,
+                                 refit=False)
+        runs.append((res, dict(_build.launches), time.perf_counter() - t0))
+    (rc, lc, wc), (rh, lh, wh) = runs
+    require(rc.method_used == rh.method_used == "bcd_batch",
+            f"small group CV ran {rc.method_used} / {rh.method_used}")
+    require(lc.get("batch_sweep_t", 0) == sum(rc.fold_sweeps) > 0
+            and sum(lh.values()) == 0,
+            f"small group CV launches card {lc}, CPU {lh}")
+    require(rc.x is None and rh.x is None, "small group CV refit ran")
+    require(rc.best_index == rh.best_index,
+            f"small group CV best index {rc.best_index} vs {rh.best_index}")
+    vc, vh = rc.val_mse.cpu().numpy(), rh.val_mse.numpy()
+    require(vc.shape == (3, GROUP_CV_LEN) and bool(np.isfinite(vc).all())
+            and bool(np.allclose(vc, vh, rtol=1e-3, atol=0.0)),
+            f"small group CV val_mse card {vc.tolist()} CPU {vh.tolist()}")
+    log(f"# small group CV 4096x4000 (3 folds, {GROUP_CV_LEN} points): best "
+        f"index {rc.best_index}, fold sweeps card {list(rc.fold_sweeps)} "
+        f"CPU {list(rh.fold_sweeps)}, val_mse max rel diff "
+        f"{float(np.max(np.abs(vc - vh) / np.abs(vh))):.2e}, wall card "
+        f"{wc:.2f} s CPU {wh:.2f} s")
+
+
+def config4_group_path(problem, A_np, b_np, gpu: str, power: str) -> None:
+    """Config 4's 10-point group lambda path down to 0.1 lam_max through
+    K5's group prox, K6 and K7: K5 launched once per sweep, every point's
+    f64 rel_gap at the f32 floor (1e-4), the last point polished by the
+    group polish to an f64 rel_gap <= 1e-6."""
+    import numpy as np
+    import torch
+
+    import convex_optimization_tpu_torch as cot
+    from convex_optimization_tpu_torch.ops import _build
+    from convex_optimization_tpu_torch.solvers.common import SolverConfig
+
+    m, n = problem.m, problem.n
+    cfg = SolverConfig(**C4_PATH)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res = cot.lambda_path(problem, cfg, path_len=C4_PATH_LEN,
+                          lam_min_frac=C4_LAM_MIN, method="bcd_batch")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    require(res.method_used == "bcd_batch",
+            f"config-4 group path ran {res.method_used}")
+    require(launches.get("batch_sweep_t", 0) == res.sweeps > 0,
+            f"config-4 group path: K5 launches "
+            f"{launches.get('batch_sweep_t', 0)} != sweeps {res.sweeps}")
+    for name in PATH_KERNELS:
+        require(launches.get(name, 0) > 0,
+                f"config-4 group path: {name} never launched")
+    require(res.xs.shape == (C4_PATH_LEN, n)
+            and bool(torch.isfinite(res.xs).all()), "config-4 group path x")
+    f64 = certify(problem, res, cfg.tol)
+    lam_last = float(res.lambdas[-1])
+    pr = cot.polish_support(problem.with_lam1(lam_last), res.xs[-1],
+                            tol=1e-6, A_host=A_np, b_host=b_np)
+    passes = 1.0 + 2.0 / cfg.gap_every
+    groups = (res.xs.view(C4_PATH_LEN, problem.penalty.ngroups, -1)
+              .abs().sum(dim=2) > 0).sum(dim=1)
+    print(json.dumps({
+        "metric": f"config4_group_lambda_path_{C4_PATH_LEN}pt_bcd_batch_"
+                  f"{m}x{n}",
+        "L": C4_PATH_LEN,
+        "lam_min_frac": C4_LAM_MIN,
+        "sweeps": res.sweeps,
+        "iters": res.iters.tolist(),
+        "wall_s": wall,
+        "ms_per_sweep": 1e3 * wall / max(res.sweeps, 1),
+        "achieved_gb_s": 4.0 * m * n * passes * res.sweeps / wall / 1e9,
+        "passes_per_sweep": passes,
+        "f32_rel_gap": res.gaps.tolist(),
+        "f64_rel_gap": f64,
+        "active_groups": groups.tolist(),
+        "last_polish_f64_rel_gap": pr.rel_gap,
+        "last_polish_wall_s": pr.wall_time_s,
+        "lambdas": np.asarray(res.lambdas.cpu()).tolist(),
+        "launches": launches,
+        "gpu": gpu,
+        "power_limit": power,
+    }), flush=True)
+    require(max(f64) <= C2_F32_FLOOR, f"config-4 group path f64 gaps {f64}")
+    require(pr.rel_gap <= 1e-6,
+            f"config-4 group path: last point polished to {pr.rel_gap}")
+
+
+def config3(device, gpu: str, power: str) -> dict:
+    """Config 3 at full size: nonneg elastic net (lam2 1e-3) at 10k x
+    100k, solve(bcd_pallas) with gap-safe screening at every check, then
+    the f64 polish to rel_gap <= 1e-6.  Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    import convex_optimization_tpu_torch as cot
+    from convex_optimization_tpu_torch.core.datagen import (
+        make_lasso_instance_host,
+    )
+    from convex_optimization_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    inst, A_np, b_np = make_lasso_instance_host(
+        C3_SEED, M, N, penalty_kind="nonneg_l1", lam2=C3_LAM2, device=device)
+    torch.cuda.synchronize()
+    datagen_s = time.perf_counter() - t0
+    problem = inst.problem
+    _build.reset_launches()
+    res = cot.solve(problem, "bcd_pallas", **C3_SOLVE)
+    pr = cot.polish_support(problem, res.x, tol=C3_SOLVE["tol"],
+                            A_host=A_np, b_host=b_np)
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    for name in MAIN_KERNELS:
+        require(launches.get(name, 0) > 0, f"config 3: {name} never launched")
+    require(res.x.shape == (N,) and bool(torch.isfinite(res.x).all())
+            and bool((res.x >= 0).all()), "config 3: x")
+    require(0 < res.screened < N,
+            f"config 3: {res.screened} columns screened at the last check")
+    sweeps = res.iterations
+    print(json.dumps({
+        "metric": f"config3_time_to_certified_1e-06_rel_gap_nonneg_en_"
+                  f"{M}x{N}_screened",
+        "sweeps": sweeps,
+        "screened_at_last_check": res.screened,
+        "solve_wall_s": res.wall_time_s,
+        "polish_wall_s": pr.wall_time_s,
+        "total_s": res.wall_time_s + pr.wall_time_s,
+        "ms_per_sweep": 1e3 * res.wall_time_s / max(sweeps, 1),
+        "setup_s": res.setup_time_s,
+        "datagen_s": datagen_s,
+        "nnz": int(np.count_nonzero(pr.x)),
+        "f32_rel_gap": res.rel_gap,
+        "f64_rel_gap": pr.rel_gap,
+        "launches": launches,
+        "gpu": gpu,
+        "power_limit": power,
+    }), flush=True)
+    require(pr.rel_gap <= C3_SOLVE["tol"],
+            f"config 3: f64 certificate {pr.rel_gap}")
+    return launches
+
+
 def config4(device, gpu: str, power: str, stats: dict) -> dict:
-    """Config 4 at contract size: the group sweeps against their plain
-    versions (16-block slice, full A_t, timed), then the certified solve +
-    group polish through K1 (B = 200) and through K9 (B = 2000).  Returns
+    """Config 4 at contract size: the group sweeps (K1, K9) and K5's group
+    prox against their plain versions (16-block slice, full A_t, timed),
+    the certified solve + group polish through K1 (B = 200) and through K9
+    (B = 2000), then the group lambda path (config4_group_path).  Returns
     the K9 route's launch counts."""
     import numpy as np
     import torch
@@ -783,6 +1107,14 @@ def config4(device, gpu: str, power: str, stats: dict) -> dict:
                          widths, "config4-slice", stats, timed=False)
     timed = compare_group_sweeps(A_rows, problem.b, lam1, gsize, None, None,
                                  widths, "config4-full", stats, timed=True)
+    # K5's group prox at L = 10, random weights in [0.5, 1.5)
+    w4 = 0.5 + torch.rand(ng, generator=gen).to(device)
+    compare_group_batch(A_rows[:16 * GROUP_B], problem.b, gsize,
+                        w4[:16 * GROUP_B // gsize], GROUP_B, "config4-slice",
+                        stats, False, (gpu, power))
+    compare_group_batch(A_rows, problem.b, gsize, w4, GROUP_B, "config4-full",
+                        stats, True, (gpu, power))
+    del w4
     k9 = timed["sweep_tiled_t"]
     record(stats, "sweep_tiled_t", k9["max_abs_err"], k9["ms"],
            k9["plain_ms"], None, k9["work"])
@@ -860,6 +1192,7 @@ def config4(device, gpu: str, power: str, stats: dict) -> dict:
         }), flush=True)
         if kernel == "sweep_tiled_t":
             k9_launches = launches
+    config4_group_path(problem, A_np, b_np, gpu, power)
     return k9_launches
 
 
@@ -1399,7 +1732,8 @@ def main() -> None:
     small_path_reference(device)
 
     # 7. config 2: the lambda path, then K-fold CV
-    path_launches = config2_path(p2, gpu_name, power_limit, stats)
+    path_launches, c2_wall = config2_path(p2, gpu_name, power_limit, stats)
+    config2_fista_path(p2, gpu_name, power_limit, c2_wall)
     config2_cv(p2, gpu_name, power_limit, stats)
     del p2, inst2
     torch.cuda.empty_cache()
@@ -1415,7 +1749,10 @@ def main() -> None:
         small.to(device), b_g, 0.1 * float(b_g.norm()), 16, w_g,
         (torch.rand(2048, generator=gen) > 0.1).to(device),
         {"sweep_t": 32, "sweep_tiled_t": 256}, "small", stats, timed=False)
+    compare_group_batch(small.to(device), b_g, 16, w_g, 32, "small", stats,
+                        False, card2)
     small_group_reference(device)
+    small_group_cv(device)
     k9_launches = config4(device, gpu_name, power_limit, stats)
     torch.cuda.empty_cache()
 
@@ -1446,6 +1783,9 @@ def main() -> None:
     slab_launches = sharded_phase(device, problem, A_np, b_np, gpu_name,
                                   power_limit)
     del problem, inst, A_np, b_np
+
+    # 11. config 3: nonneg elastic net with gap-safe screening, certified
+    config3(device, gpu_name, power_limit)
 
     require(all(math.isfinite(stats[k]["ms"]) for k in KERNELS),
             "kernel times")

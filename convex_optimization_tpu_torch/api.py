@@ -47,6 +47,8 @@ class Result:
     method: str
     config: SolverConfig
     setup_time_s: float = 0.0   # Lipschitz constants (K4, or L_total)
+    screened: int = 0        # coordinates the last check's gap-safe screen
+                             # froze (screen_every > 0; not in the JAX package)
 
     @property
     def nnz(self) -> int:
@@ -80,7 +82,7 @@ def _pad_columns(problem: Problem, pad: int) -> Problem:
                                penalty=pen)
 
 
-def solve(problem: Problem, method: str = "bcd_pallas", *,
+def solve(problem: Problem, method: str = "fista", *,
           x0: Optional[torch.Tensor] = None,
           cfg: Optional[SolverConfig] = None,
           mesh=None,
@@ -88,10 +90,11 @@ def solve(problem: Problem, method: str = "bcd_pallas", *,
           **cfg_overrides: Any) -> Result:
     """Solve a composite problem on the device of ``problem.A_t``.
 
-    method: 'bcd_pallas' (K1 or K9, K2-K4: the CUDA kernels for a CUDA
+    method: 'fista' (the default, as in the JAX package) or 'ista' (K2/K3
+    steps), 'bcd_pallas' (K1 or K9, K2-K4: the CUDA kernels for a CUDA
     problem, their plain versions for a CPU problem), 'bcd' (the plain
-    reference sweep), 'fista' or 'ista' (K2/K3 steps); 'bcd_batch' solves
-    a grid and is reached through ``lambda_path``.  With ``mesh`` (a
+    reference sweep); 'bcd_batch' solves a grid and is reached through
+    ``lambda_path``.  With ``mesh`` (a
     ``parallel.mesh.ColumnGroup``) every rank of the group calls this with
     the same problem and solves its column slab on the group's device
     (``parallel/sharded.py``).  ``certify=True`` finishes with the f64
@@ -132,18 +135,21 @@ def solve(problem: Problem, method: str = "bcd_pallas", *,
 def _solve_fista(problem: Problem, method: str, x0, cfg: SolverConfig
                  ) -> Result:
     """FISTA/ISTA with L_total = ||A||^2 + lam2 by the K2/K3 power
-    iteration (set-up, outside the solve wall)."""
+    iteration (set-up, outside the solve wall, as are the column norms
+    that screening reads)."""
     device = problem.device
     if device.type == "cuda":
         _build.load()
     _sync(device)
     t0 = time.perf_counter()
     L_total = float(spectral_norm_sq_t(problem.A_t)) + problem.lam2
+    col_norms = fista_mod.screen_norms(problem, cfg, None)
+    _sync(device)
     setup_s = time.perf_counter() - t0
     state0 = fista_mod.init_state(problem, x0)
     _sync(device)
     t1 = time.perf_counter()
-    final = fista_mod.fista(problem, L_total, state0, cfg)
+    final = fista_mod.fista(problem, L_total, state0, cfg, col_norms)
     _sync(device)
     return _result(final, method, cfg, time.perf_counter() - t1, setup_s)
 
@@ -152,6 +158,7 @@ def _result(final, method: str, cfg: SolverConfig, wall: float,
             setup_s: float, n: int | None = None) -> Result:
     """Result from a final state: the best-certified iterate (cut to the
     first ``n`` coordinates when given) and its check's numbers."""
+    keep = final.keep_mask if n is None else final.keep_mask[:n]
     return Result(
         x=final.x_best if n is None else final.x_best[:n],
         gap=final.best_gap,
@@ -164,6 +171,8 @@ def _result(final, method: str, cfg: SolverConfig, wall: float,
         method=method,
         config=cfg,
         setup_time_s=setup_s,
+        screened=(int(keep.numel() - keep.sum()) if cfg.screen_every > 0
+                  else 0),
     )
 
 
@@ -195,13 +204,14 @@ def _solve_bcd(problem: Problem, method: str, x0, cfg: SolverConfig
     t0 = time.perf_counter()
     block_L = (block_power_t(problem.A_t) if cfg.use_pallas
                else block_power_t_plain(problem.A_t))
+    col_norms = bcd_mod.screen_norms(problem, cfg, None)
     _sync(device)
     setup_s = time.perf_counter() - t0
 
     state0 = bcd_mod.init_state(problem, x0, keep_mask=base_mask)
     _sync(device)
     t1 = time.perf_counter()
-    final = bcd_mod.bcd(problem, block_L, state0, cfg)
+    final = bcd_mod.bcd(problem, block_L, state0, cfg, col_norms)
     _sync(device)
     return _result(final, method, cfg, time.perf_counter() - t1, setup_s,
                    orig_n)

@@ -46,8 +46,18 @@
 // through L2) bounds it: 6.6 ms per sweep at L = 1 and 9.3 ms at L = 10
 // over 625 blocks, 11-15 us per block (PERF.md).
 //
-// Penalties: 0 = l1 (soft threshold), 1 = nonneg_l1 (shift and clip).
-// group_l2 is refused by the Python wrapper.
+// Penalties: 0 = l1 (soft threshold), 1 = nonneg_l1 (shift and clip),
+// 2 = group_l2 over contiguous groups of gsize coordinates (gsize divides
+// B), weights w (n / gsize,) or null for ones.  The group prox needs a
+// whole group's v before any coordinate is final, so for kind 2 the
+// reducing warp writes v_l = x_l - t (g_l + lam2 x_l) to the (L, B) buffer
+// instead of dx; after barrier 2 every CTA loads v and X_in's (L, B) slice
+// into shared memory and computes each (l, group) scale
+// max(0, 1 - t lam1_l w_g / max(||v_g||, 1e-30)), one warp per (l, group)
+// with ||v_g||^2 summed in one fixed order (lane stride, then warp_sum),
+// then the keep mask and dx, as K1 does at L = 1.  Every CTA thus holds the
+// same bits of dx (the row-mask identity above still holds exactly); CTA 0
+// writes X_out.  The extra shared memory is L B + L B / gsize floats.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -75,16 +85,19 @@ batch_sweep_kernel(const float* __restrict__ A_t,
                    const float* __restrict__ lam1s,
                    const uint8_t* __restrict__ keep,
                    const float* __restrict__ row_mask,
+                   const float* __restrict__ w,
                    float* __restrict__ X_out, float* __restrict__ R_out,
                    float* partials, int n_blocks, int B, int m, int L,
-                   int rows, float lam2, int kind) {
+                   int rows, int gsize, float lam2, int kind) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float smem[];
   const int ld = tile_ld(rows);
   float* tile = smem;                 // (B, ld)
   float* r_s = tile + B * ld;         // (L, rows)
   float* rm_s = r_s + L * rows;       // (rows,)
-  float* dx_s = rm_s + rows;          // (L, B)
+  float* dx_s = rm_s + rows;          // (L, B): group v, then dx
+  float* xj_s = dx_s + L * B;         // (L, B) X_in of block j (group_l2)
+  float* sc_s = xj_s + L * B;         // (L, B / gsize) group scales
 
   const int G = gridDim.x;
   const int c = blockIdx.x;
@@ -97,6 +110,8 @@ batch_sweep_kernel(const float* __restrict__ A_t,
   const int LB = L * B;
   const int Lr = L * rows;
   const bool masked = row_mask != nullptr;
+  const bool group = kind == 2;
+  const int gpb = group ? B / gsize : 0;
   float* dx_g = partials + (size_t)G * LB;  // partials (G, L, B), dx (L, B)
 
   for (int p = tid; p < Lr; p += blockDim.x) {
@@ -142,14 +157,44 @@ batch_sweep_kernel(const float* __restrict__ A_t,
         const size_t k = ((size_t)j * L + l) * B + b;
         const float xj = X_in[k];
         g = g + lam2 * xj;
-        float xn = prox(xj - t * g, t * lam1s[l], kind);
-        if (keep != nullptr && keep[j * B + b] == 0) xn = 0.0f;
-        dx_g[p] = xn - xj;
-        X_out[k] = xn;
+        if (group) {
+          dx_g[p] = xj - t * g;  // v: the group prox needs the whole group
+        } else {
+          float xn = prox(xj - t * g, t * lam1s[l], kind);
+          if (keep != nullptr && keep[j * B + b] == 0) xn = 0.0f;
+          dx_g[p] = xn - xj;
+          X_out[k] = xn;
+        }
       }
     }
     grid.sync();
     for (int p = tid; p < LB; p += blockDim.x) dx_s[p] = __ldcg(dx_g + p);
+    if (group) {
+      const float* Xj = X_in + (size_t)j * LB;
+      for (int p = tid; p < LB; p += blockDim.x) xj_s[p] = Xj[p];
+      __syncthreads();
+      // one warp per (l, group): ||v_g||^2 in a fixed order, then the scale
+      for (int q = warp; q < L * gpb; q += nwarps) {
+        const int l = q / gpb, gi = q - l * gpb;
+        const float* v = dx_s + l * B + gi * gsize;
+        float s = 0.0f;
+        for (int i = lane; i < gsize; i += 32) s = fmaf(v[i], v[i], s);
+        s = warp_sum(s);
+        if (lane == 0) {
+          const float wq = w != nullptr ? w[j * gpb + gi] : 1.0f;
+          sc_s[q] = fmaxf(
+              0.0f, 1.0f - t * lam1s[l] * wq / fmaxf(sqrtf(s), 1e-30f));
+        }
+      }
+      __syncthreads();
+      for (int p = tid; p < LB; p += blockDim.x) {
+        const int l = p / B, b = p - l * B;
+        float xn = dx_s[p] * sc_s[l * gpb + b / gsize];
+        if (keep != nullptr && keep[j * B + b] == 0) xn = 0.0f;
+        if (c == 0) X_out[(size_t)j * LB + p] = xn;
+        dx_s[p] = xn - xj_s[p];
+      }
+    }
     __syncthreads();
 
     // phase 2: r_l += rm * (A_t[j]^T dx_l) over this CTA's rows
@@ -169,19 +214,24 @@ batch_sweep_kernel(const float* __restrict__ A_t,
   }
 }
 
-size_t smem_bytes(int B, int rows, int L) {
+// gsize 0 for the separable proxes; a group launch adds x_j and the
+// group scales, L B + L B / gsize floats.
+size_t smem_bytes(int B, int rows, int L, int gsize) {
+  const size_t group = gsize > 0 ? (size_t)L * B + (size_t)L * (B / gsize)
+                                 : 0;
   return sizeof(float) * ((size_t)B * tile_ld(rows) + (size_t)L * rows +
-                          rows + (size_t)L * B);
+                          rows + (size_t)L * B + group);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Grid size for a batched sweep at (B, m, L): one CTA per SM, bounded by
+// Grid size for a batched sweep at (B, m, L), gsize 0 for l1 and
+// nonneg_l1 and the group width for group_l2: one CTA per SM, bounded by
 // co-resident capacity and by m.  Returns a cudaError_t; *grid_out = 0 when
 // the tile does not fit in shared memory.
-int cot_batch_sweep_grid(int B, int m, int L, int* grid_out) {
+int cot_batch_sweep_grid(int B, int m, int L, int gsize, int* grid_out) {
   *grid_out = 0;
   int dev = 0, sms = 0, coop = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -195,7 +245,7 @@ int cot_batch_sweep_grid(int B, int m, int L, int* grid_out) {
   if (!coop) return (int)cudaErrorNotSupported;
   int G = sms < m ? sms : m;
   const int rows = (m + G - 1) / G;
-  const size_t smem = smem_bytes(B, rows, L);
+  const size_t smem = smem_bytes(B, rows, L, gsize);
   if (smem > (size_t)kMaxSmemBytes) return (int)cudaSuccess;
   err = cudaFuncSetAttribute(batch_sweep_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -211,25 +261,29 @@ int cot_batch_sweep_grid(int B, int m, int L, int* grid_out) {
 }
 
 // One batched sweep.  X_out / R_out must not alias the inputs; partials
-// holds (grid + 1) * L * B floats.  keep (n,) and row_mask (m,) may be null.
+// holds (grid + 1) * L * B floats.  keep (n,), row_mask (m,) and the group
+// weights w (n / gsize,) may be null; gsize is read for kind 2 only.
 int cot_batch_sweep_t(const float* A_t, const float* X_in, const float* R_in,
                       const float* steps, const float* lam1s,
                       const uint8_t* keep, const float* row_mask,
-                      float* X_out, float* R_out, float* partials,
-                      int n_blocks, int B, int m, int L, float lam2, int kind,
-                      int grid, cudaStream_t stream) {
+                      const float* w, float* X_out, float* R_out,
+                      float* partials, int n_blocks, int B, int m, int L,
+                      int gsize, float lam2, int kind, int grid,
+                      cudaStream_t stream) {
   int rows = (m + grid - 1) / grid;
-  size_t smem = smem_bytes(B, rows, L);
+  if (kind != 2) gsize = 0;
+  size_t smem = smem_bytes(B, rows, L, gsize);
   cudaError_t err = cudaFuncSetAttribute(
       batch_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   void* args[] = {(void*)&A_t,      (void*)&X_in,  (void*)&R_in,
                   (void*)&steps,    (void*)&lam1s, (void*)&keep,
-                  (void*)&row_mask, (void*)&X_out, (void*)&R_out,
-                  (void*)&partials, (void*)&n_blocks, (void*)&B,
-                  (void*)&m,        (void*)&L,     (void*)&rows,
-                  (void*)&lam2,     (void*)&kind};
+                  (void*)&row_mask, (void*)&w,     (void*)&X_out,
+                  (void*)&R_out,    (void*)&partials, (void*)&n_blocks,
+                  (void*)&B,        (void*)&m,     (void*)&L,
+                  (void*)&rows,     (void*)&gsize, (void*)&lam2,
+                  (void*)&kind};
   err = cudaLaunchCooperativeKernel((void*)batch_sweep_kernel, dim3(grid),
                                     dim3(kThreads), args, smem, stream);
   if (err != cudaSuccess) return (int)err;

@@ -119,10 +119,10 @@ def _declare(lib) -> None:
                                      _VP]
     lib.cot_neg_at_r_t.argtypes = [_VP, _VP, _VP, _VP, _I, _I, _Fl, _VP]
     lib.cot_block_power_t.argtypes = [_VP, _VP, _I, _I, _I, _I, _Fl, _VP]
-    lib.cot_batch_sweep_grid.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+    lib.cot_batch_sweep_grid.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
     lib.cot_batch_sweep_t.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _VP,
-                                      _VP, _VP, _VP, _I, _I, _I, _I, _Fl,
-                                      _I, _I, _VP]
+                                      _VP, _VP, _VP, _VP, _I, _I, _I, _I,
+                                      _I, _Fl, _I, _I, _VP]
     lib.cot_ax_minus_b_batch_t.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I,
                                            _I, _I, _I, _VP]
     lib.cot_matvec_batch_plan.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]

@@ -30,18 +30,19 @@ import torch
 
 from convex_optimization_tpu_torch.models.penalties import Penalty
 from convex_optimization_tpu_torch.ops import _build
+from convex_optimization_tpu_torch.ops.bcd_sweep import (
+    KIND_CODE,
+    group_operands,
+)
 from convex_optimization_tpu_torch.ops.matvec import _check, _on_cuda
-
-#: the penalties K5 computes on the card (its group prox comes with the
-#: group lambda path, ROADMAP queue 1, item 8)
-_KIND_CODE = {"l1": 0, "nonneg_l1": 1}
 
 #: most path points one batched launch carries (K5 keeps L accumulators
 #: per thread in registers, sized for this; K6 and K7 are templated on L
 #: rounded up to 4, up to it)
 MAX_BATCH = 16
 
-#: (device index, B, m, L) -> K5 cooperative grid size, 0 when no fit
+#: (device index, B, m, L, gsize) -> K5 cooperative grid size, 0 when no
+#: fit (gsize 0 outside group_l2: the group prox needs more shared memory)
 _grid_cache: dict = {}
 #: (device index, n, m, L) -> K6/K7 launch plan (matvec_batch_plan)
 _plan_cache: dict = {}
@@ -123,15 +124,18 @@ def batch_sweep_t_plain(A_t: torch.Tensor, X: torch.Tensor, R: torch.Tensor,
     return X, R
 
 
-def batch_grid(device: torch.device, B: int, m: int, L: int) -> int:
+def batch_grid(device: torch.device, B: int, m: int, L: int,
+               gsize: int = 0) -> int:
     """Cooperative grid size of K5 at (B, m, L) on ``device``; 0 when its
-    shared-memory tile does not fit."""
-    key = (device.index, B, m, L)
+    shared-memory tile does not fit.  ``gsize``: the group width of a
+    group_l2 launch, 0 otherwise."""
+    key = (device.index, B, m, L, gsize)
     if key not in _grid_cache:
         lib = _build.load()
         g = ctypes.c_int(0)
         with torch.cuda.device(device):
-            _build.check(lib.cot_batch_sweep_grid(B, m, L, ctypes.byref(g)),
+            _build.check(lib.cot_batch_sweep_grid(B, m, L, gsize,
+                                                  ctypes.byref(g)),
                          "cot_batch_sweep_grid")
         _grid_cache[key] = g.value
     return _grid_cache[key]
@@ -139,14 +143,17 @@ def batch_grid(device: torch.device, B: int, m: int, L: int) -> int:
 
 def eligible_batch(m: int, n: int, B: int, L: int, *,
                    dtype: torch.dtype = torch.float32,
-                   device: torch.device | None = None) -> bool:
+                   device: torch.device | None = None,
+                   gsize: int = 0) -> bool:
     """Whether the batched kernels take this shape: f32, 1 <= L <=
-    MAX_BATCH, B a multiple of 8 dividing n, and on a CUDA device a K5
+    MAX_BATCH, B a multiple of 8 dividing n (and of ``gsize``, the group
+    width of a group_l2 problem, 0 otherwise), and on a CUDA device a K5
     tile that fits shared memory (asked of the C side)."""
     ok = (dtype == torch.float32 and 1 <= L <= MAX_BATCH
-          and B >= 8 and B % 8 == 0 and n % B == 0)
+          and B >= 8 and B % 8 == 0 and n % B == 0
+          and (gsize == 0 or B % gsize == 0))
     if ok and device is not None and device.type == "cuda":
-        ok = batch_grid(device, B, m, L) > 0
+        ok = batch_grid(device, B, m, L, gsize) > 0
     return ok
 
 
@@ -159,16 +166,14 @@ def batch_sweep_t(A_t: torch.Tensor, X: torch.Tensor, R: torch.Tensor,
 
     A_t (n_blocks, B, m), X (n_blocks, L, B), R (L, m), steps (n_blocks,),
     lam1s (L,), row_mask None or (m,) 0/1, all f32; keep_mask None or (n,)
-    bool.  ``penalty`` gives the kind (and group weights); its lam1 is
-    ignored in favour of lam1s.  CPU tensors take the plain version; CUDA
-    tensors launch K5 or raise."""
+    bool.  ``penalty`` gives the kind (and group weights; a group_l2 block
+    holds whole groups); its lam1 is ignored in favour of lam1s.  CPU
+    tensors take the plain version; CUDA tensors launch K5 or raise."""
     if not _on_cuda(A_t):
         return batch_sweep_t_plain(A_t, X, R, steps, lam1s, lam2, penalty,
                                    keep_mask, row_mask)
-    if penalty.kind not in _KIND_CODE:
-        raise NotImplementedError(
-            f"K5 on CUDA supports l1 and nonneg_l1, not {penalty.kind!r} "
-            "(group_l2: ROADMAP queue 1, item 8)")
+    if penalty.kind not in KIND_CODE:
+        raise ValueError(f"unknown penalty kind {penalty.kind!r}")
     nb, B, m = A_t.shape
     L = X.shape[1]
     if not 1 <= L <= MAX_BATCH:
@@ -186,7 +191,10 @@ def batch_sweep_t(A_t: torch.Tensor, X: torch.Tensor, R: torch.Tensor,
                 or not keep_mask.is_contiguous():
             raise ValueError(f"keep_mask: expected contiguous bool "
                              f"({nb * B},) on {dev}")
-    grid = batch_grid(dev, B, m, L)
+    gsize, w = group_operands(penalty, nb * B, B, dev)
+    if penalty.kind != "group_l2":
+        gsize = 0
+    grid = batch_grid(dev, B, m, L, gsize)
     if grid == 0:
         raise ValueError(f"K5 tile of B={B}, m={m}, L={L} does not fit in "
                          "shared memory")
@@ -199,8 +207,9 @@ def batch_sweep_t(A_t: torch.Tensor, X: torch.Tensor, R: torch.Tensor,
         lam1s.data_ptr(),
         None if keep_mask is None else keep_mask.data_ptr(),
         None if row_mask is None else row_mask.data_ptr(),
+        None if w is None else w.data_ptr(),
         X_out.data_ptr(), R_out.data_ptr(), partials.data_ptr(),
-        nb, B, m, L, float(lam2), _KIND_CODE[penalty.kind], grid,
+        nb, B, m, L, gsize, float(lam2), KIND_CODE[penalty.kind], grid,
         _build.stream_ptr(dev))
     _build.check(err, "batch_sweep_t")
     _build.launches["batch_sweep_t"] += 1

@@ -307,6 +307,10 @@ def solve_sharded(problem: Problem, method: str, g: ColumnGroup, x0=None,
         cfg = dataclasses.replace(cfg, **cfg_overrides)
     if method not in ("fista", "ista", "bcd"):
         raise ValueError(f"unknown sharded method {method!r}")
+    if cfg.screen_every > 0:
+        raise NotImplementedError(
+            "gap-safe screening in the sharded solvers is not ported yet "
+            "(ROADMAP queue 1, item 13); pass screen_every=0")
     P = g.size
     if problem.n % P != 0:
         raise ValueError(f"n={problem.n} must divide over {P} shards")

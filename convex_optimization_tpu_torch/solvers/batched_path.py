@@ -203,13 +203,16 @@ def _solve_batched(A_t: torch.Tensor, b: torch.Tensor, lam1s: torch.Tensor,
 
 
 def _batch_gate_reason(problem: Problem, picked: tuple[int, int],
-                       chunk: int) -> str | None:
-    """None when the batched kernels can run; else a readable reason."""
+                       chunk: int, gsize: int) -> str | None:
+    """None when the batched kernels can run; else a readable reason.
+    ``gsize``: the group width of a group_l2 problem, 0 otherwise (K5's
+    group prox needs more shared memory)."""
     if picked[1] != 0:
         return (f"no pad-free block size for (m={problem.m}, "
                 f"n={problem.n})")
     if not eligible_batch(problem.m, problem.n, picked[0], chunk,
-                          dtype=problem.dtype, device=problem.device):
+                          dtype=problem.dtype, device=problem.device,
+                          gsize=gsize):
         return (f"eligible_batch failed for (m={problem.m}, "
                 f"n={problem.n}, B={picked[0]}, L={chunk}, "
                 f"dtype={problem.dtype})")
@@ -239,7 +242,8 @@ def prepare_batched_solver(problem: Problem, cfg: SolverConfig, *,
     if problem.penalty.kind == "group_l2":
         multiple = problem.n // problem.penalty.ngroups
     picked = pick_block_size_t(problem.n, 128, multiple)
-    reason = _batch_gate_reason(problem, picked, chunk)
+    gsize = multiple if problem.penalty.kind == "group_l2" else 0
+    reason = _batch_gate_reason(problem, picked, chunk, gsize)
     if reason is not None:
         return PreparedBatch(None, None, reason)
 

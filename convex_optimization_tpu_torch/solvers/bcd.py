@@ -40,6 +40,7 @@ from convex_optimization_tpu_torch.solvers.fista import (  # noqa: F401
     _check_and_record,
     continue_loop,
     init_state,
+    screen_norms,
 )
 
 
@@ -87,10 +88,14 @@ def prepare_sweep(A_t: torch.Tensor) -> None:
 
 
 def bcd(problem: Problem, block_L: torch.Tensor, state: SolveState,
-        cfg: SolverConfig) -> SolveState:
+        cfg: SolverConfig,
+        col_norms: torch.Tensor | None = None) -> SolveState:
     """Sweep until rel. duality gap <= cfg.tol, max_iters sweeps, or
     ``stall_checks`` checks without a new best.  block_L holds per-block
-    ||A_j||_2^2 (no lam2); B = n / len(block_L).
+    ||A_j||_2^2 (no lam2); B = n / len(block_L).  With
+    ``cfg.screen_every > 0`` every check screens and the sweeps freeze the
+    screened coordinates through their keep mask (``col_norms`` as in
+    ``fista.fista``).
 
     cfg.use_pallas: sweeps, refresh and witness go through K1 or K9
     (``pick_sweep``), K2, K3 (kernels for CUDA tensors, their plain
@@ -101,6 +106,7 @@ def bcd(problem: Problem, block_L: torch.Tensor, state: SolveState,
     # lam1 as a Python float: read once here, not once per launch
     problem = problem.with_lam1(float(problem.penalty.lam1)).with_block(B)
     A_t, lam2 = problem.A_t, problem.lam2
+    col_norms = screen_norms(problem, cfg, col_norms)
 
     if cfg.use_pallas:
         steps = block_steps(block_L, lam2, cfg.step_scale)
@@ -115,7 +121,8 @@ def bcd(problem: Problem, block_L: torch.Tensor, state: SolveState,
             # incrementally maintained r; K3 reuses the fresh r
             r = ax_minus_b_t(A_t, s.x, problem.b)
             z = neg_at_r_t(A_t, r, s.x, lam2)
-            return _check_and_record(problem, s._replace(r=r), z=z)
+            return _check_and_record(problem, s._replace(r=r), z=z,
+                                     col_norms=col_norms)
     else:
         order = range(n_blocks)
 
@@ -126,7 +133,7 @@ def bcd(problem: Problem, block_L: torch.Tensor, state: SolveState,
 
         def refresh_and_check(s: SolveState) -> SolveState:
             s = s._replace(r=problem.residual(s.x))
-            return _check_and_record(problem, s)
+            return _check_and_record(problem, s, col_norms=col_norms)
 
     state = refresh_and_check(state)
     while continue_loop(state, cfg):
@@ -138,4 +145,4 @@ def bcd(problem: Problem, block_L: torch.Tensor, state: SolveState,
 
 
 __all__ = ["bcd", "pick_block_size", "pick_sweep", "prepare_sweep",
-           "init_state"]
+           "init_state", "screen_norms"]

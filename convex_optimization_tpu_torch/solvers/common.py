@@ -28,9 +28,8 @@ NOT_PORTED = {
 
 @dataclasses.dataclass(frozen=True)
 class SolverConfig:
-    """Solver knobs: the JAX package's SolverConfig minus screening, which
-    comes with the screening solver, and ``unroll_checks``, an XLA:CPU
-    workaround with no counterpart here."""
+    """Solver knobs: the JAX package's SolverConfig minus
+    ``unroll_checks``, an XLA:CPU workaround with no counterpart here."""
 
     max_iters: int = 2000
     tol: float = 1e-6          # relative duality-gap target (the 1e-6 grade)
@@ -40,6 +39,8 @@ class SolverConfig:
     block_size: int = 256      # BCD column-block width
     step_scale: float = 1.0    # BCD step damping
     use_pallas: bool = False   # BCD: device kernels vs plain sweep
+    screen_every: int = 0      # 0 = screening off; else gap-safe screening
+                               # at every check (the JAX package's rule)
     stall_checks: int = 0      # 0 = off; else exit after this many gap
                                # checks without a new best rel_gap
     consensus: str = "psum"    # column-sharded residual consensus: "psum",

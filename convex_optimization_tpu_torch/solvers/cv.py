@@ -55,8 +55,9 @@ class CVResult(NamedTuple):
     best_lambda: float
     one_se_index: int           # largest lambda within 1 SE of the minimum
     one_se_lambda: float        # (the sparser "1-SE rule" choice)
-    x: torch.Tensor             # full-data refit at best_lambda
-    x_one_se: torch.Tensor      # full-data refit at one_se_lambda
+    x: torch.Tensor | None      # full-data refit at best_lambda (None
+                                # with refit=False)
+    x_one_se: torch.Tensor | None   # full-data refit at one_se_lambda
     method_used: str = "bcd_batch"  # solver that actually ran the folds
     fold_sweeps: tuple = ()     # sweeps each fold's path ran (not in the
                                 # JAX package)
@@ -113,13 +114,15 @@ def cv_lambda_path(
     lambdas: torch.Tensor | None = None,
     seed: int = 0,
     method: str = "bcd_batch",
+    refit: bool = True,
 ) -> CVResult:
     """K-fold CV over a warm-started lambda path; picks lambda by held-out
     MSE.
 
     Returns the MSE-minimising lambda and the "1-SE rule" lambda (the
     largest lambda whose mean MSE is within one standard error of the
-    minimum), and the full-data refit along the grid at both of them."""
+    minimum) and, with ``refit=True``, the full-data refit along the grid
+    at both of them (``x`` and ``x_one_se``; None with ``refit=False``)."""
     if lambdas is not None:
         lambdas = torch.as_tensor(lambdas, dtype=problem.dtype,
                                   device=problem.device)
@@ -145,22 +148,25 @@ def cv_lambda_path(
     # lambdas descend: the first index within the threshold is the largest
     one_se = int(torch.argmax((mean_mse <= thresh).to(torch.int32)))
 
-    if prep is not None:
-        pr_full = batched_lambda_path(problem, cfg, lambdas=lambdas,
-                                      prepared=prep)
-    else:
-        # a failed batched gate already warned: go straight to the
-        # substituted solver
-        refit_method = "bcd_pallas" if method == "bcd_batch" else method
-        pr_full = lambda_path(problem, cfg, lambdas=lambdas,
-                              method=refit_method)
+    x = x_one_se = None
+    if refit:
+        if prep is not None:
+            pr_full = batched_lambda_path(problem, cfg, lambdas=lambdas,
+                                          prepared=prep)
+        else:
+            # a failed batched gate already warned: go straight to the
+            # substituted solver
+            refit_method = "bcd_pallas" if method == "bcd_batch" else method
+            pr_full = lambda_path(problem, cfg, lambdas=lambdas,
+                                  method=refit_method)
+        x, x_one_se = pr_full.xs[best], pr_full.xs[one_se]
 
     lam_host = lambdas.tolist()
     return CVResult(
         lambdas=lambdas, val_mse=val_mse, mean_mse=mean_mse, se_mse=se_mse,
         best_index=best, best_lambda=lam_host[best],
         one_se_index=one_se, one_se_lambda=lam_host[one_se],
-        x=pr_full.xs[best], x_one_se=pr_full.xs[one_se],
+        x=x, x_one_se=x_one_se,
         method_used=method_used,
         fold_sweeps=tuple(fold_sweeps))
 

@@ -33,24 +33,34 @@ from convex_optimization_tpu_torch.solvers.common import (
 
 
 def _check_and_record(problem: Problem, state: SolveState,
-                      z: torch.Tensor | None = None) -> SolveState:
+                      z: torch.Tensor | None = None,
+                      col_norms: torch.Tensor | None = None) -> SolveState:
     """Duality-gap check + history record, with ONE host sync: the gap's
     scalars and the support size come back in a single transfer.  Pass a
     precomputed ``z`` (= -A^T r - lam2 x, from K3) to skip the plain
-    witness."""
+    witness.  With ``col_norms`` (the augmented column norms; callers pass
+    them when ``cfg.screen_every > 0``) the gap-safe screen at this check
+    tightens the keep mask on the device, as the JAX package's check
+    does."""
     x, r = state.x, state.r
     if z is None:
         z = dual_witness(problem, x, r)
+    rr = torch.dot(r, r)
     info = gap_from_parts(
         rho_dot_b=-torch.dot(r, problem.b),
-        rho_aug_sq=torch.dot(r, r) + problem.lam2 * torch.dot(x, x),
+        rho_aug_sq=rr + problem.lam2 * torch.dot(x, x),
         g_value=problem.penalty.value(x),
         dual_norm_value=problem.penalty.dual_norm(z),
     )
+    keep = state.keep_mask
+    if col_norms is not None:
+        keep = keep & problem.penalty.screen_keep(
+            z, info.alpha, info.gap, col_norms, r_norm=torch.sqrt(rr),
+            primal=info.primal)
     vals = torch.stack([info.gap, info.primal, info.dual, info.rel_gap,
                         count_nnz(x).to(info.gap.dtype)]).tolist()
     host = dict(zip(("gap", "primal", "dual", "rel_gap"), vals[:4]))
-    return record_check(state, host, x, int(vals[4]), state.keep_mask)
+    return record_check(state, host, x, int(vals[4]), keep)
 
 
 def init_state(problem: Problem, x0: torch.Tensor | None,
@@ -74,6 +84,15 @@ def init_state(problem: Problem, x0: torch.Tensor | None,
         best_primal=math.inf,
         x_prev=x, r_prev=r, t_mom=torch.ones((), dtype=dtype, device=device),
     )
+
+
+def screen_norms(problem: Problem, cfg: SolverConfig,
+                 col_norms: torch.Tensor | None) -> torch.Tensor | None:
+    """The column norms the checks screen with: None when screening is
+    off, else ``col_norms`` or, when not given, the problem's."""
+    if cfg.screen_every <= 0:
+        return None
+    return problem.col_norms() if col_norms is None else col_norms
 
 
 def momentum_point(state: SolveState, cfg: SolverConfig):
@@ -128,18 +147,22 @@ def continue_loop(s: SolveState, cfg: SolverConfig) -> bool:
 
 
 def fista(problem: Problem, L_total: float, state: SolveState,
-          cfg: SolverConfig) -> SolveState:
+          cfg: SolverConfig,
+          col_norms: torch.Tensor | None = None) -> SolveState:
     """Run FISTA until rel. duality gap <= cfg.tol, ``max_iters``
     iterations or ``stall_checks`` checks without a new best.  L_total
     must be >= ||A||_2^2 + lam2 (``ops.matvec.spectral_norm_sq_t``); the
-    check's witness is K3's."""
+    check's witness is K3's.  With ``cfg.screen_every > 0`` every check
+    screens (``col_norms``: the problem's augmented column norms, computed
+    here when not given)."""
     L_total = float(L_total)
     # lam1 as a Python float: read once here, not once per step
     problem = problem.with_lam1(float(problem.penalty.lam1))
+    col_norms = screen_norms(problem, cfg, col_norms)
 
     def check(s: SolveState) -> SolveState:
         z = neg_at_r_t(problem.A_t, s.r, s.x, problem.lam2)
-        return _check_and_record(problem, s, z=z)
+        return _check_and_record(problem, s, z=z, col_norms=col_norms)
 
     state = check(state)
     while continue_loop(state, cfg):

@@ -1,15 +1,20 @@
 """Warm-started lambda path.
 
 Counterpart of ``convex_optimization_tpu/solvers/lambda_path.py`` for the
-``bcd``, ``bcd_pallas`` and ``bcd_batch`` methods with ``compact=False``.
-A geometric grid lam_max -> lam_min_frac * lam_max is solved point by
-point, each solve warm-started at the previous point's best iterate, or,
-with ``method='bcd_batch'``, all at once (``solvers/batched_path.py``).
+``fista`` (the default), ``ista``, ``bcd``, ``bcd_pallas`` and
+``bcd_batch`` methods with ``compact=False``.  A geometric grid lam_max ->
+lam_min_frac * lam_max is solved point by point, each solve warm-started
+at the previous point's solution, or, with ``method='bcd_batch'``, all at
+once (``solvers/batched_path.py``).
 
-The sequential path hoists the per-block Lipschitz constants (K4) once for
-the whole path and computes each warm start's residual with K2; every
-point then runs ``solvers/bcd.bcd`` directly.  The grid's lam_max comes
-from the witness kernel K3 (``lambda_max_t``).
+The FISTA path computes L_total = ||A||^2 + lam2 once (the K2/K3 power
+iteration) and warm-starts each point at the previous point's LAST
+iterate, returning the last iterates and their gaps, as the JAX package
+does; 'ista' is the same path (the JAX package's sets no momentum=False,
+so ``cfg.momentum`` decides).  The BCD paths hoist the per-block
+Lipschitz constants (K4) once and warm-start at the previous point's best
+iterate.  Every warm start's residual comes from K2, and the grid's
+lam_max from the witness kernel K3 (``lambda_max_t``).
 """
 
 from __future__ import annotations
@@ -27,29 +32,28 @@ from convex_optimization_tpu_torch.ops.matvec import (
     ax_minus_b_t,
     block_power_t,
     block_power_t_plain,
+    spectral_norm_sq_t,
 )
 from convex_optimization_tpu_torch.solvers import bcd as bcd_mod
+from convex_optimization_tpu_torch.solvers import fista as fista_mod
 from convex_optimization_tpu_torch.solvers.common import (
     NOT_PORTED,
     SolverConfig,
 )
 
+
 class PathResult(NamedTuple):
     lambdas: torch.Tensor           # (path_len,)
     xs: torch.Tensor                # (path_len, n) solutions
     gaps: torch.Tensor              # (path_len,) best relative gaps
-    iters: torch.Tensor             # (path_len,) sweeps at each point's best
+    iters: torch.Tensor             # (path_len,) sweeps at each point's
+                                    # best (FISTA: steps at each point)
     method_used: str | None = None  # the solver that actually ran
     converged: torch.Tensor | None = None   # (path_len,) gaps <= tol
-    sweeps: int = 0                 # sweeps run in all (not in the JAX
-                                    # package: the batched path's iters
-                                    # are per point and overlap)
-
-
-#: path methods of the JAX package still to port (``solve`` runs FISTA/ISTA
-#: at one lambda; their warm-started path is not ported)
-_PATH_NOT_PORTED = dict(NOT_PORTED, fista="queue 1, item 10",
-                        ista="queue 1, item 10")
+    sweeps: int = 0                 # sweeps (FISTA: steps) run in all
+                                    # (not in the JAX package: the
+                                    # batched path's iters are per point
+                                    # and overlap)
 
 
 def path_grid(lmax: float, path_len: int, lam_min_frac: float,
@@ -69,13 +73,15 @@ def lambda_path(
     lambdas: torch.Tensor | None = None,
     compact: bool = False,
     mesh=None,
-    method: str = "bcd_batch",
+    method: str = "fista",
 ) -> PathResult:
     """Warm-started path on the device of ``problem.A_t``.
 
-    method: 'bcd_batch' (every point at once through K5-K7, falling back
+    method: 'fista' (the default, as in the JAX package: K2/K3 steps) or
+    'ista', 'bcd_batch' (every point at once through K5-K7, falling back
     loudly to 'bcd_pallas' where its gate fails), 'bcd_pallas' (K1-K4,
-    one point after another) or 'bcd' (the plain reference sweep)."""
+    one point after another) or 'bcd' (the plain reference sweep).  With
+    ``cfg.screen_every > 0`` the sequential paths screen at every check."""
     if method == "bcd_batch" and compact:
         raise ValueError(
             "method='bcd_batch' does not support compact=True (the batched "
@@ -88,11 +94,11 @@ def lambda_path(
     if mesh is not None:
         raise NotImplementedError(
             "sharded paths are not ported yet (ROADMAP queue 1, item 13)")
-    if method in _PATH_NOT_PORTED:
+    if method in NOT_PORTED:
         raise NotImplementedError(
             f"the {method!r} path is not ported yet "
-            f"(ROADMAP {_PATH_NOT_PORTED[method]})")
-    if method not in ("bcd", "bcd_pallas", "bcd_batch"):
+            f"(ROADMAP {NOT_PORTED[method]})")
+    if method not in ("fista", "ista", "bcd", "bcd_pallas", "bcd_batch"):
         raise ValueError(f"unknown method {method!r}")
 
     if lambdas is None:
@@ -108,7 +114,45 @@ def lambda_path(
         )
 
         return batched_lambda_path(problem, cfg, lambdas=lambdas)
+    if method in ("fista", "ista"):
+        return _fista_path(problem, cfg, lambdas, method)
     return _sequential_path(problem, cfg, lambdas, method)
+
+
+def _path_result(problem: Problem, cfg: SolverConfig, lambdas, xs, gaps,
+                 iters, method: str) -> PathResult:
+    dev = problem.device
+    gaps_t = torch.tensor(gaps, dtype=problem.dtype, device=dev)
+    return PathResult(
+        lambdas=lambdas, xs=torch.stack(xs), gaps=gaps_t,
+        iters=torch.tensor(iters, dtype=torch.int64, device=dev),
+        method_used=method, converged=gaps_t <= cfg.tol,
+        sweeps=sum(iters))
+
+
+def _fista_path(problem: Problem, cfg: SolverConfig, lambdas: torch.Tensor,
+                method: str) -> PathResult:
+    """The JAX package's FISTA path (its ``lambda_path.py:303-317``): one
+    L_total, each point warm-started at the previous point's last iterate
+    with the residual from K2; returns the last iterates and their
+    gaps."""
+    L_total = float(spectral_norm_sq_t(problem.A_t)) + problem.lam2
+    col_norms = fista_mod.screen_norms(problem, cfg, None)
+    xs, gaps, iters = [], [], []
+    x_warm = None
+    for lam in lambdas.tolist():
+        p = problem.with_lam1(lam)
+        state = fista_mod.init_state(p, None)
+        if x_warm is not None:
+            r_w = ax_minus_b_t(p.A_t, x_warm, p.b)
+            state = state._replace(x=x_warm, r=r_w, x_prev=x_warm,
+                                   r_prev=r_w, x_best=x_warm)
+        state = fista_mod.fista(p, L_total, state, cfg, col_norms)
+        x_warm = state.x
+        xs.append(state.x)
+        gaps.append(state.rel_gap)
+        iters.append(state.k)
+    return _path_result(problem, cfg, lambdas, xs, gaps, iters, method)
 
 
 def _sequential_path(problem: Problem, cfg: SolverConfig,
@@ -133,9 +177,9 @@ def _sequential_path(problem: Problem, cfg: SolverConfig,
         bcd_mod.prepare_sweep(problem.A_t)
     block_L = (block_power_t(problem.A_t) if cfg.use_pallas
                else block_power_t_plain(problem.A_t))
+    col_norms = bcd_mod.screen_norms(problem, cfg, None)
 
     xs, gaps, iters = [], [], []
-    sweeps = 0
     x_warm = None
     for lam in lambdas.tolist():
         p = problem.with_lam1(lam)
@@ -144,15 +188,9 @@ def _sequential_path(problem: Problem, cfg: SolverConfig,
             r_w = (ax_minus_b_t(p.A_t, x_warm, p.b) if cfg.use_pallas
                    else p.residual(x_warm))
             state = state._replace(x=x_warm, r=r_w, x_best=x_warm)
-        state = bcd_mod.bcd(p, block_L, state, cfg)
+        state = bcd_mod.bcd(p, block_L, state, cfg, col_norms)
         x_warm = state.x_best
         xs.append(state.x_best)
         gaps.append(state.best_rel_gap)
         iters.append(state.k)
-        sweeps += state.k
-    dev = problem.device
-    gaps_t = torch.tensor(gaps, dtype=problem.dtype, device=dev)
-    return PathResult(
-        lambdas=lambdas, xs=torch.stack(xs), gaps=gaps_t,
-        iters=torch.tensor(iters, dtype=torch.int64, device=dev),
-        method_used=method, converged=gaps_t <= cfg.tol, sweeps=sweeps)
+    return _path_result(problem, cfg, lambdas, xs, gaps, iters, method)

@@ -10,9 +10,14 @@ relative 1e-5 for one pass over A (K2, K3, one K1, K5, K8 or K9 sweep,
 K6, K7; K8's payload scalars to 1e-4 of their magnitude sums, sums of n
 terms in another order),
 1e-4 for the 48-iteration power estimate (K4).  K5 with a 0/1 row mask
-equals K5 on a masked copy of A bit for bit (torch.equal); K6 and K7 give
-the same bits on two launches (torch.equal).
+equals K5 on a masked copy of A bit for bit (torch.equal), with every
+penalty; K6 and K7 give the same bits on two launches (torch.equal).
+Solves and paths on the card against the same on the CPU: certified in
+f64 (<= 2 tol: the f32 gap's own rounding), x within 5e-3 (two certified
+iterates) and step counts within one check.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -264,12 +269,20 @@ def test_batch_matvec_kernels_are_deterministic(cuda, m, n, B, L):
                        neg_at_r_batch_t(p.A_t, R, X, p.lam2))
 
 
-@pytest.mark.parametrize("kind", ["l1", "nonneg_l1"])
+def _batch_penalty(kind, n, B, device):
+    """K5's penalty: lam1 1 (the kernel reads lam1s), group_l2 as
+    ``_group_penalty`` (whole groups in every block, random weights)."""
+    if kind == "group_l2":
+        return dataclasses.replace(_group_penalty(n, B, device), lam1=1.0)
+    return Penalty(lam1=1.0, kind=kind)
+
+
+@pytest.mark.parametrize("kind", ["l1", "nonneg_l1", "group_l2"])
 @pytest.mark.parametrize("m,n,B", SHAPES)
 def test_batch_sweep_kernel_matches_plain(cuda, m, n, B, kind):
     p, _ = _data(m, n, B, cuda)
     X, R, keep, _, lam1s, steps = _batch(p, 4)
-    pen = Penalty(lam1=1.0, kind=kind)
+    pen = _batch_penalty(kind, n, B, cuda)
     if kind == "nonneg_l1":
         X = X.abs()
         R = ax_minus_b_batch_t_plain(p.A_t, X, p.b)
@@ -280,12 +293,14 @@ def test_batch_sweep_kernel_matches_plain(cuda, m, n, B, kind):
     assert bool((rows_of(X_k)[:, ~keep] == 0).all())
 
 
+@pytest.mark.parametrize("kind", ["l1", "group_l2"])
 @pytest.mark.parametrize("m,n,B", SHAPES)
-def test_masked_batch_sweep_kernel_is_exact_vs_masked_copy(cuda, m, n, B):
+def test_masked_batch_sweep_kernel_is_exact_vs_masked_copy(cuda, m, n, B,
+                                                           kind):
     p, _ = _data(m, n, B, cuda)
     X, R, keep, rm, lam1s, steps = _batch(p, 3)
     R = rm * R                      # residual rows come in masked
-    pen = Penalty(lam1=1.0, kind="l1")
+    pen = _batch_penalty(kind, n, B, cuda)
     X1, R1 = X2, R2 = X, R
     for _ in range(2):
         X1, R1 = batch_sweep_t(p.A_t, X1, R1, steps, lam1s, p.lam2, pen,
@@ -324,8 +339,10 @@ def test_batched_path_on_card_matches_cpu(cuda):
     inst_c, _, _ = make_lasso_instance_host(3, 64, 256, device=cuda)
     inst_h, _, _ = make_lasso_instance_host(3, 64, 256, device="cpu")
     before = dict(_build.launches)
-    res_c = cot.lambda_path(inst_c.problem, cfg, path_len=6)
-    res_h = cot.lambda_path(inst_h.problem, cfg, path_len=6)
+    res_c = cot.lambda_path(inst_c.problem, cfg, path_len=6,
+                            method="bcd_batch")
+    res_h = cot.lambda_path(inst_h.problem, cfg, path_len=6,
+                            method="bcd_batch")
     for name in ("batch_sweep_t", "ax_minus_b_batch_t", "neg_at_r_batch_t"):
         assert _build.launches[name] > before.get(name, 0)
     assert res_c.method_used == res_h.method_used == "bcd_batch"
@@ -364,14 +381,19 @@ def test_wrappers_reject_bad_operands(cuda):
     with pytest.raises(ValueError):
         neg_at_r_t(p.A_t, p.b.cpu(), x, 0.0)
     group = Penalty(lam1=0.05, kind="group_l2", ngroups=32)
-    # K1 (and K9) take group_l2; K5's group prox is not ported yet
+    split = Penalty(lam1=0.05, kind="group_l2", ngroups=16)
+    # K1 (and K9) and K5 take group_l2 where a block holds whole groups
     sweep_t(p.A_t, x, -p.b, torch.ones(32, device=cuda), None, group, 0.0)
     with pytest.raises(ValueError, match="whole groups"):
-        sweep_t(p.A_t, x, -p.b, torch.ones(32, device=cuda), None,
-                Penalty(lam1=0.05, kind="group_l2", ngroups=16), 0.0)
+        sweep_t(p.A_t, x, -p.b, torch.ones(32, device=cuda), None, split,
+                0.0)
     X, R, _, _, lam1s, steps = _batch(p, 2)
-    with pytest.raises(NotImplementedError):
-        batch_sweep_t(p.A_t, X, R, steps, lam1s, 0.0, group)
+    batch_sweep_t(p.A_t, X, R, steps, lam1s, 0.0, group)
+    with pytest.raises(ValueError, match="whole groups"):
+        batch_sweep_t(p.A_t, X, R, steps, lam1s, 0.0, split)
+    with pytest.raises(ValueError, match="unknown penalty kind"):
+        batch_sweep_t(p.A_t, X, R, steps, lam1s, 0.0,
+                      Penalty(lam1=1.0, kind="nope"))
     with pytest.raises(ValueError):
         batch_sweep_t(p.A_t, X, R.double(), steps, lam1s, 0.0, Penalty(1.0))
     with pytest.raises(ValueError):
@@ -510,3 +532,100 @@ def test_gloo_collectives_on_card_are_exact_or_raise(cuda, tmp_path):
             assert r[name] == 0.0, (name, r)
         for name in ("ring", "reduce_scatter"):
             assert r[name].startswith("RuntimeError: gloo takes no CUDA"), r
+
+
+def test_group_batched_path_and_cv_on_card_match_cpu(cuda):
+    """A weighted group_l2 path and 3-fold CV through K5's group prox, K6
+    and K7 on the card against the same on the CPU (plain versions)."""
+    import convex_optimization_tpu_torch as cot
+    from convex_optimization_tpu_torch.core.datagen import (
+        make_lasso_instance_host,
+    )
+    from convex_optimization_tpu_torch.solvers.common import SolverConfig
+
+    cfg = SolverConfig(tol=1e-6, max_iters=4000, gap_every=10,
+                       stall_checks=20)
+    w = np.random.default_rng(5).uniform(0.5, 1.5, 32).astype(np.float32)
+    probs = []
+    for dev in (cuda, "cpu"):
+        inst, _, _ = make_lasso_instance_host(
+            5, 128, 512, penalty_kind="group_l2", ngroups=32, device=dev)
+        probs.append(inst.problem.with_penalty(dataclasses.replace(
+            inst.problem.penalty,
+            weights=torch.as_tensor(w, device=dev))))
+    _build.reset_launches()
+    res_c = cot.lambda_path(probs[0], cfg, path_len=6, method="bcd_batch")
+    assert _build.launches["batch_sweep_t"] == res_c.sweeps > 0
+    res_h = cot.lambda_path(probs[1], cfg, path_len=6, method="bcd_batch")
+    assert res_c.method_used == res_h.method_used == "bcd_batch"
+    assert bool((res_c.converged.cpu() == res_h.converged).all())
+    for l, lam in enumerate(res_c.lambdas.tolist()):
+        if bool(res_c.converged[l]):
+            gap = cot.duality_gap(probs[0].with_lam1(lam), res_c.xs[l],
+                                  precise=True)
+            assert float(gap.rel_gap) <= 2e-6
+    torch.testing.assert_close(res_c.xs.cpu(), res_h.xs, rtol=0, atol=5e-3)
+    cv_c = cot.cv_lambda_path(probs[0], cfg, k=3, path_len=5)
+    cv_h = cot.cv_lambda_path(probs[1], cfg, k=3, path_len=5)
+    assert cv_c.method_used == cv_h.method_used == "bcd_batch"
+    assert cv_c.best_index == cv_h.best_index
+    torch.testing.assert_close(cv_c.val_mse.cpu(), cv_h.val_mse, rtol=1e-3,
+                               atol=0.0)
+
+
+def test_fista_path_on_card_matches_cpu(cuda):
+    """The FISTA path (the default method): K2 and K3 on the card against
+    their plain versions on the CPU, point by point."""
+    import convex_optimization_tpu_torch as cot
+    from convex_optimization_tpu_torch.core.datagen import (
+        make_lasso_instance_host,
+    )
+    from convex_optimization_tpu_torch.solvers.common import SolverConfig
+
+    cfg = SolverConfig(tol=1e-5, max_iters=4000, gap_every=10,
+                       stall_checks=20)
+    inst_c, _, _ = make_lasso_instance_host(7, 200, 800, device=cuda)
+    inst_h, _, _ = make_lasso_instance_host(7, 200, 800, device="cpu")
+    _build.reset_launches()
+    res_c = cot.lambda_path(inst_c.problem, cfg, path_len=6,
+                            lam_min_frac=0.05)
+    assert _build.launches["ax_minus_b_t"] > res_c.sweeps > 0
+    assert _build.launches["neg_at_r_t"] > res_c.sweeps
+    res_h = cot.lambda_path(inst_h.problem, cfg, path_len=6,
+                            lam_min_frac=0.05)
+    assert res_c.method_used == res_h.method_used == "fista"
+    assert bool((res_c.converged.cpu() == res_h.converged).all())
+    assert (res_c.iters.cpu() - res_h.iters).abs().max() <= 10
+    for l, lam in enumerate(res_c.lambdas.tolist()):
+        if bool(res_c.converged[l]):
+            gap = cot.duality_gap(inst_c.problem.with_lam1(lam),
+                                  res_c.xs[l], precise=True)
+            assert float(gap.rel_gap) <= 2e-5
+    torch.testing.assert_close(res_c.xs.cpu(), res_h.xs, rtol=0, atol=5e-3)
+
+
+def test_screened_nonneg_solve_on_card_matches_cpu(cuda):
+    """Config 3's solve at a small shape (nonneg_l1, lam2 1e-3,
+    screen_every=1, bcd_pallas) on the card against the CPU: step counts
+    within one check, both certify after the polish, with the same
+    support."""
+    import convex_optimization_tpu_torch as cot
+    from convex_optimization_tpu_torch.core.datagen import (
+        make_lasso_instance_host,
+    )
+
+    kw = dict(tol=1e-6, max_iters=20_000, gap_every=10, stall_checks=15,
+              block_size=128, screen_every=1)
+    shape = dict(penalty_kind="nonneg_l1", lam2=1e-3)
+    inst_c, A, b = make_lasso_instance_host(0, 500, 2000, device=cuda,
+                                            **shape)
+    inst_h, _, _ = make_lasso_instance_host(0, 500, 2000, device="cpu",
+                                            **shape)
+    res_c = cot.solve(inst_c.problem, "bcd_pallas", **kw)
+    res_h = cot.solve(inst_h.problem, "bcd_pallas", **kw)
+    assert abs(res_c.iterations - res_h.iterations) <= 10
+    prs = [cot.polish_support(p, r.x, tol=1e-6, A_host=A, b_host=b)
+           for p, r in ((inst_c.problem, res_c), (inst_h.problem, res_h))]
+    assert max(pr.rel_gap for pr in prs) <= 1e-6
+    np.testing.assert_array_equal(np.abs(prs[0].x) > 1e-4,
+                                  np.abs(prs[1].x) > 1e-4)

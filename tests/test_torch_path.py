@@ -248,15 +248,32 @@ def test_eligibility_gate():
 PATH_CFG = dict(tol=1e-5, max_iters=4000, gap_every=10, stall_checks=20)
 
 
-@pytest.mark.parametrize("kind", ["l1", "nonneg_l1"])
-def test_batched_path_matches_jax(kind):
-    j_inst, _, _ = j_make_host(21, M, N, penalty_kind=kind)
-    inst, _, _ = make_lasso_instance_host(21, M, N, penalty_kind=kind,
-                                          device="cpu")
-    j_res = j_batched_lambda_path(j_inst.problem, JSolverConfig(**PATH_CFG),
-                                  path_len=6)
-    res = cot.batched_lambda_path(inst.problem, SolverConfig(**PATH_CFG),
-                                  path_len=6)
+def _weighted_pair(seed, kind, ngroups):
+    """The JAX package's host instance and the port's problem on the same
+    numpy arrays; group_l2 gets the same random weights in [0.5, 1.5) in
+    both."""
+    j_inst, A, b = j_make_host(seed, M, N, penalty_kind=kind,
+                               ngroups=ngroups)
+    jp = j_inst.problem
+    w = None
+    if kind == "group_l2":
+        w = np.random.default_rng(seed).uniform(
+            0.5, 1.5, ngroups).astype(np.float32)
+        jp = dataclasses.replace(jp, penalty=dataclasses.replace(
+            jp.penalty, weights=jnp.asarray(w)))
+    tp = problem_from_numpy(A, b, kind, float(jp.penalty.lam1),
+                            ngroups=ngroups, weights=w, device="cpu")
+    return jp, tp
+
+
+@pytest.mark.parametrize("kind,ngroups", [("l1", 0), ("nonneg_l1", 0),
+                                          ("group_l2", 32)])
+def test_batched_path_matches_jax(kind, ngroups):
+    """The batched path against the JAX package's (its K5-K7 in interpret
+    mode); group_l2 with weights runs K5's group prox."""
+    jp, tp = _weighted_pair(21, kind, ngroups)
+    j_res = j_batched_lambda_path(jp, JSolverConfig(**PATH_CFG), path_len=6)
+    res = cot.batched_lambda_path(tp, SolverConfig(**PATH_CFG), path_len=6)
     print(f"{kind}: iters port {res.iters.tolist()} "
           f"jax {np.asarray(j_res.iters).tolist()}")
     assert res.method_used == j_res.method_used == "bcd_batch"
@@ -267,11 +284,12 @@ def test_batched_path_matches_jax(kind):
     for l, lam in enumerate(res.lambdas.tolist()):
         if not bool(res.converged[l]):
             continue
-        gap = co.duality_gap(j_inst.problem.with_lam1(lam),
+        gap = co.duality_gap(jp.with_lam1(lam),
                              jnp.asarray(res.xs[l].numpy()), precise=True)
         assert float(gap.rel_gap) <= 2 * PATH_CFG["tol"], (l, gap)
     np.testing.assert_array_equal(np.abs(res.xs.numpy()) > 1e-4,
                                   np.abs(np.asarray(j_res.xs)) > 1e-4)
+    assert bool(res.converged.any())
 
 
 @pytest.mark.parametrize("kind,ngroups", [("l1", 0), ("nonneg_l1", 0),
@@ -348,8 +366,7 @@ def test_bcd_batch_compact_raises():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(method="fista"), dict(method="ista"), dict(method="bcd_ws"),
-    dict(method="fista_ws"), dict(method="admm"),
+    dict(method="bcd_ws"), dict(method="fista_ws"), dict(method="admm"),
     dict(method="bcd_pallas", compact=True), dict(mesh=object()),
 ])
 def test_unported_path_options_raise(kw):
@@ -405,3 +422,39 @@ def test_batch_launch_counters_stay_zero_on_cpu():
     cot.cv_lambda_path(inst.problem, SolverConfig(tol=1e-4, max_iters=200),
                        k=2, path_len=3)
     assert sum(_build.launches.values()) == 0
+
+
+def test_group_cv_matches_jax():
+    """Weighted group_l2 CV through the batched kernels (K5's group prox
+    with the fold row masks) against the JAX package's on the same
+    arrays: the same fold masks, val_mse to rtol 1e-3, the same indices."""
+    jp, tp = _weighted_pair(29, "group_l2", 32)
+    kw = dict(tol=1e-5, max_iters=4000, gap_every=10, stall_checks=20)
+    j_res = j_cv_lambda_path(jp, JSolverConfig(**kw), k=3, path_len=5,
+                             seed=1)
+    res = cot.cv_lambda_path(tp, SolverConfig(**kw), k=3, path_len=5,
+                             seed=1)
+    assert res.method_used == j_res.method_used == "bcd_batch"
+    np.testing.assert_allclose(res.val_mse.numpy(),
+                               np.asarray(j_res.val_mse), rtol=1e-3)
+    assert (res.best_index, res.one_se_index) == \
+        (j_res.best_index, j_res.one_se_index)
+    assert res.x.shape == (N,)
+
+
+def test_cv_without_refit_matches_jax():
+    """refit=False skips the full-data path in both packages: the same
+    val_mse (rtol 1e-3) and indices, and no x."""
+    jp, tp = _weighted_pair(30, "l1", 0)
+    kw = dict(tol=1e-5, max_iters=4000, gap_every=10, stall_checks=20)
+    j_res = j_cv_lambda_path(jp, JSolverConfig(**kw), k=3, path_len=5,
+                             seed=2, refit=False)
+    res = cot.cv_lambda_path(tp, SolverConfig(**kw), k=3, path_len=5,
+                             seed=2, refit=False)
+    assert res.x is None and res.x_one_se is None
+    assert j_res.x is None and j_res.x_one_se is None
+    np.testing.assert_allclose(res.val_mse.numpy(),
+                               np.asarray(j_res.val_mse), rtol=1e-3)
+    assert (res.best_index, res.one_se_index) == \
+        (j_res.best_index, j_res.one_se_index)
+    assert len(res.fold_sweeps) == 3
