@@ -13,8 +13,10 @@ non-zero without one.  Phases, each of which fails the run if it fails:
      tolerances: at a small shape, on a 64-block slice of the main path's
      A_t (B = 80, m = 10000), and on the full A_t (1250 blocks), where
      the kernel's and the plain version's times are taken with CUDA
-     events; K1 runs with a partly-zero keep mask at the small and slice
-     shapes and with the main path's all-ones mask at full size; then a
+     events (K2 and K3 launched twice, torch.equal, and one JSON line of
+     their times beside addmv and the bound); K1 runs with a partly-zero
+     keep mask at the small and slice shapes and with the main path's
+     all-ones mask at full size; then a
      200 x 800 solve + polish on the card against the same solve on the
      CPU (the plain versions);
   4. the main path of bench.py on the port: the native host library must
@@ -34,6 +36,7 @@ non-zero without one.  Phases, each of which fails the run if it fails:
      lambda path calls it, with a partly-zero keep mask and a fold row
      mask as CV calls it, the masked K5 against K5 on a masked copy of A_t
      (torch.equal), K5 at L = 1 against K1; K5 timed at L = 1, 4, 10, 16;
+     K2 and K3 on config 2's A_t as in phase 3 (their JSON line);
   6. a 500 x 2000 10-point lambda path with bcd_batch and with bcd_pallas,
      on the card and on the CPU (plain versions): every converged point
      certifies in f64, supports agree between card and CPU;
@@ -42,7 +45,9 @@ non-zero without one.  Phases, each of which fails the run if it fails:
      gap_every=10, stall_checks=10, block_size=128), every point's f64
      rel_gap <= 1e-4 (the f32 floor of this configuration); the same path
      with lambda_path's default method, FISTA (K2 and K3 every step), each
-     converged point certified the same, its wall beside bcd_batch's; then
+     converged point certified the same, its wall beside bcd_batch's and
+     K2's and K3's launches and share of its wall (launches times their
+     phase-5 times); then
      3-fold cv_lambda_path on the same instance, its refit certified the
      same; the bcd_batch lines carry the checks' share of the wall (K6 and
      K7 launches times their phase-5 times at L = 10);
@@ -223,15 +228,87 @@ def sweep_work(m: int, n: int, n_blocks: int) -> tuple[int, int]:
     return 4 * m * n + 4 * (2 * n + 2 * m + n_blocks) + n, 4 * m * n
 
 
+def compare_matvecs(A_t, b, x_probe, label: str, stats: dict, timed: bool,
+                    card: tuple, main: bool = True) -> dict:
+    """K2 and K3 against their plain versions on one A_t, each launched
+    twice on the same inputs (the two results must be torch.equal); with
+    ``timed``, one JSON line of their times beside the plain versions',
+    the ``addmv`` computing the same function, and the bound.  Their
+    largest errors go into ``stats``, and with ``main`` their times too
+    (the kernels line's shape).  Returns {name: its record here}.
+
+    Tolerances: K2 per row 1e-5 (||A[i, :]|| ||x|| + |b_i|), which bounds
+    f32 rounding of a sum of n terms in any order (the limit must be able
+    to reject a kernel that returned zeros); K3 its stated rounding bound
+    witness_gamma(m) ||A_j|| ||r|| with ||A_j|| <= the largest column
+    norm."""
+    import torch
+
+    from convex_optimization_tpu_torch.ops import matvec as mv
+
+    nb, B, m = A_t.shape
+    n = nb * B
+    zeros_n = torch.zeros(n, device=A_t.device)
+    at: dict = {}
+
+    r_k = mv.ax_minus_b_t(A_t, x_probe, b)
+    r_p = mv.ax_minus_b_t_plain(A_t, x_probe, b)
+    row_tol = 1e-5 * (torch.linalg.vector_norm(A_t, dim=(0, 1)) * float(
+        torch.linalg.vector_norm(x_probe)) + b.abs())
+    diff = (r_k - r_p).abs()
+    err = float(diff.max())
+    require(bool((diff <= row_tol).all()),
+            f"{label} ax_minus_b_t err {err}, worst ratio "
+            f"{float((diff / row_tol).max())}")
+    require(bool((r_p.abs() > row_tol).any()),
+            f"{label} ax_minus_b_t limit cannot tell r from 0")
+    require(torch.equal(r_k, mv.ax_minus_b_t(A_t, x_probe, b)),
+            f"{label} ax_minus_b_t differs run to run")
+    A = A_t.view(n, m).T
+    times = (time_ms(lambda: mv.ax_minus_b_t(A_t, x_probe, b), 10),
+             time_ms(lambda: mv.ax_minus_b_t_plain(A_t, x_probe, b), 10),
+             time_ms(lambda: torch.addmv(b, A, x_probe, beta=-1.0), 10),
+             (4 * m * n + 4 * n + 8 * m, 2 * m * n)) if timed else ()
+    record(at, "ax_minus_b_t", err, *times)
+    record(stats, "ax_minus_b_t", err, *(times if main else ()))
+
+    z_k = mv.neg_at_r_t(A_t, r_p, zeros_n, 0.0)
+    z_p = mv.neg_at_r_t_plain(A_t, r_p, zeros_n, 0.0)
+    err = float((z_k - z_p).abs().max())
+    col_max = float(torch.linalg.vector_norm(A_t, dim=2).max())
+    bound = mv.witness_gamma(m) * col_max * float(
+        torch.linalg.vector_norm(r_p))
+    require(err <= bound, f"{label} neg_at_r_t err {err} > bound {bound}")
+    require(torch.equal(z_k, mv.neg_at_r_t(A_t, r_p, zeros_n, 0.0)),
+            f"{label} neg_at_r_t differs run to run")
+    times = (time_ms(lambda: mv.neg_at_r_t(A_t, r_p, zeros_n, 0.0), 10),
+             time_ms(lambda: mv.neg_at_r_t_plain(A_t, r_p, zeros_n, 0.0),
+                     10),
+             time_ms(lambda: torch.addmv(zeros_n, A.T, r_p, beta=0.0,
+                                         alpha=-1.0), 10),
+             (4 * m * n + 4 * m + 8 * n, 2 * m * n)) if timed else ()
+    record(at, "neg_at_r_t", err, *times)
+    record(stats, "neg_at_r_t", err, *(times if main else ()))
+    if timed:
+        print(json.dumps({
+            "metric": f"k2_k3_ms_{label}_A_t_{nb}x{B}x{m}",
+            "plan": vars(mv.matvec_plan(A_t.device, n, m)),
+            "k2": at["ax_minus_b_t"], "k3": at["neg_at_r_t"],
+            "k3_depth": mv.k3_depth(m),
+            "gpu": card[0], "power_limit": card[1]}), flush=True)
+    return at
+
+
 def compare_kernels(A_t, b, x_probe, keep, label: str, stats: dict,
-                    timed: bool) -> None:
+                    timed: bool, card: tuple) -> None:
     """Every kernel against its plain version on one A_t; ``x_probe`` is
     a dense vector, ``keep`` K1's keep mask.
 
     Tolerances: f32 sums in another order than the plain versions', so
     one pass over A agrees to rounding (relative tol on the scale of the
-    result); K1 chains n_blocks dependent updates, so the full-size sweep
-    gets 1e-4 where a slice gets 1e-5; K4 gets 1e-4 (48 iterations)."""
+    result; K2 and K3 as ``compare_matvecs``); K1 chains n_blocks
+    dependent updates, so the full-size sweep gets 1e-4 where a slice gets
+    1e-5; K4 gets 1e-4 (48 iterations)."""
     import torch
 
     from convex_optimization_tpu_torch.models.penalties import l1
@@ -255,42 +332,7 @@ def compare_kernels(A_t, b, x_probe, keep, label: str, stats: dict,
         if timed else ()
     record(stats, "block_power_t", err, *times)
 
-    # K2, row by row: |r_i - r'_i| <= 1e-5 (||A[i, :]|| ||x|| + |b_i|),
-    # which bounds f32 rounding of a sum of n terms in any order; the limit
-    # must be able to reject a kernel that returned zeros
-    r_k = mv.ax_minus_b_t(A_t, x_probe, b)
-    r_p = mv.ax_minus_b_t_plain(A_t, x_probe, b)
-    row_tol = 1e-5 * (torch.linalg.vector_norm(A_t, dim=(0, 1)) * float(
-        torch.linalg.vector_norm(x_probe)) + b.abs())
-    diff = (r_k - r_p).abs()
-    err = float(diff.max())
-    require(bool((diff <= row_tol).all()),
-            f"{label} ax_minus_b_t err {err}, worst ratio "
-            f"{float((diff / row_tol).max())}")
-    require(bool((r_p.abs() > row_tol).any()),
-            f"{label} ax_minus_b_t limit cannot tell r from 0")
-    A = A_t.view(n, m).T
-    times = (time_ms(lambda: mv.ax_minus_b_t(A_t, x_probe, b), 10),
-             time_ms(lambda: mv.ax_minus_b_t_plain(A_t, x_probe, b), 10),
-             time_ms(lambda: torch.addmv(b, A, x_probe, beta=-1.0), 10),
-             (4 * m * n + 4 * n + 8 * m, 2 * m * n)) if timed else ()
-    record(stats, "ax_minus_b_t", err, *times)
-
-    # K3 (its stated bound, with ||A_j|| <= max column norm)
-    z_k = mv.neg_at_r_t(A_t, r_p, zeros_n, 0.0)
-    z_p = mv.neg_at_r_t_plain(A_t, r_p, zeros_n, 0.0)
-    err = float((z_k - z_p).abs().max())
-    col_max = float(torch.linalg.vector_norm(A_t, dim=2).max())
-    bound = mv.witness_gamma(m) * col_max * float(
-        torch.linalg.vector_norm(r_p))
-    require(err <= bound, f"{label} neg_at_r_t err {err} > bound {bound}")
-    times = (time_ms(lambda: mv.neg_at_r_t(A_t, r_p, zeros_n, 0.0), 10),
-             time_ms(lambda: mv.neg_at_r_t_plain(A_t, r_p, zeros_n, 0.0),
-                     10),
-             time_ms(lambda: torch.addmv(zeros_n, A.T, r_p, beta=0.0,
-                                         alpha=-1.0), 10),
-             (4 * m * n + 4 * m + 8 * n, 2 * m * n)) if timed else ()
-    record(stats, "neg_at_r_t", err, *times)
+    compare_matvecs(A_t, b, x_probe, label, stats, timed, card)
 
     # K1: one sweep from x = 0, r = -b, l1 at 0.1 lambda_max, with the
     # given keep mask (the main path passes all ones)
@@ -704,12 +746,14 @@ def config2_path(problem, gpu: str, power: str, stats: dict
     return launches, wall
 
 
-def config2_fista_path(problem, gpu: str, power: str, bcd_wall: float
-                       ) -> None:
+def config2_fista_path(problem, gpu: str, power: str, bcd_wall: float,
+                       matvec: dict) -> None:
     """Config 2's 10-point FISTA lambda path (lambda_path's default
     method) with the bcd_batch path's settings: K2 and K3 launched on
     every step, every converged point's f64 rel_gap at the f32 floor; its
-    wall beside the bcd_batch path's."""
+    wall beside the bcd_batch path's, and K2's and K3's launches and their
+    share of the wall (launches times their phase-5 time on config 2's
+    A_t, ``matvec``, over the wall)."""
     import torch
 
     import convex_optimization_tpu_torch as cot
@@ -740,6 +784,12 @@ def config2_fista_path(problem, gpu: str, power: str, bcd_wall: float
         "wall_s": wall,
         "ms_per_step": 1e3 * wall / max(res.sweeps, 1),
         "bcd_batch_wall_s": bcd_wall,
+        "k2_launches": launches["ax_minus_b_t"],
+        "k3_launches": launches["neg_at_r_t"],
+        "k2_share": launches["ax_minus_b_t"]
+        * matvec["ax_minus_b_t"]["ms"] / 1e3 / wall,
+        "k3_share": launches["neg_at_r_t"]
+        * matvec["neg_at_r_t"]["ms"] / 1e3 / wall,
         "converged": conv,
         "f32_rel_gap": res.gaps.tolist(),
         "f64_rel_gap": f64,
@@ -1636,8 +1686,9 @@ def main() -> None:
     x_small = torch.randn(1024, generator=gen).to(device)
     b_small = torch.randn(256, generator=gen).to(device)
     keep_small = (torch.rand(1024, generator=gen) > 0.1).to(device)
+    card2 = (gpu_name, power_limit)
     compare_kernels(A_small.view(32, 32, 256), b_small, x_small, keep_small,
-                    "small", stats, timed=False)
+                    "small", stats, False, card2)
 
     # the instance must be the JAX package's, and the polish its native path
     require(native.have_native(), "native host library did not build")
@@ -1653,10 +1704,10 @@ def main() -> None:
     x_dense = torch.randn(N, generator=gen).to(device)
     keep_part = (torch.rand(64 * 80, generator=gen) > 0.1).to(device)
     compare_kernels(A_t80[:64], problem.b, x_dense[:64 * 80], keep_part,
-                    "slice", stats, timed=False)
+                    "slice", stats, False, card2)
     compare_kernels(A_t80, problem.b, x_dense,
                     torch.ones(N, dtype=torch.bool, device=device), "full",
-                    stats, timed=True)
+                    stats, True, card2)
     small_reference(device)
 
     # 4. main path
@@ -1708,8 +1759,7 @@ def main() -> None:
     # the headline instance stays for phases 9 and 10
     del res, pr, A_t80
 
-    # 5. batched kernels vs plain versions
-    card2 = (gpu_name, power_limit)
+    # 5. batched kernels vs plain versions, and K2 and K3 on config 2's A_t
     compare_batch_kernels(A_small.view(32, 32, 256), b_small, "small", stats,
                           False, card2)
     t0 = time.perf_counter()
@@ -1720,6 +1770,9 @@ def main() -> None:
     p2 = inst2.problem
     by_L = compare_batch_kernels(p2.with_block(80).A_t, p2.b, "config2",
                                  stats, True, card2)
+    c2_matvec = compare_matvecs(p2.with_block(80).A_t, p2.b,
+                                torch.randn(C2_N, generator=gen).to(device),
+                                "config2", stats, True, card2, main=False)
     print(json.dumps({
         "metric": f"k5_ms_per_sweep_by_L_{C2_M}x{C2_N}_B80",
         "k5_ms": {str(k): v for k, v in by_L.items() if k != "k1"},
@@ -1733,7 +1786,7 @@ def main() -> None:
 
     # 7. config 2: the lambda path, then K-fold CV
     path_launches, c2_wall = config2_path(p2, gpu_name, power_limit, stats)
-    config2_fista_path(p2, gpu_name, power_limit, c2_wall)
+    config2_fista_path(p2, gpu_name, power_limit, c2_wall, c2_matvec)
     config2_cv(p2, gpu_name, power_limit, stats)
     del p2, inst2
     torch.cuda.empty_cache()

@@ -39,29 +39,15 @@
 
 #include <cuda_runtime.h>
 
-#include <cstdint>
 #include <type_traits>
+
+#include "loads.cuh"
 
 namespace {
 
 constexpr int kMaxL = 16;
 
 __host__ __device__ constexpr int pad4(int L) { return (L + 3) & ~3; }
-
-// Four consecutive floats of a row of A2, read once (streamed: evict
-// first, so that X, R and the partials keep their L2 lines).  `left` >= 1
-// is how many floats the row still has from p; the scalar instance masks
-// past it.
-template <bool kVec>
-__device__ __forceinline__ float4 load_a(const float* p, int left) {
-  if (kVec) return __ldcs(reinterpret_cast<const float4*>(p));
-  float4 a;
-  a.x = __ldcs(p);
-  a.y = left > 1 ? __ldcs(p + 1) : 0.0f;
-  a.z = left > 2 ? __ldcs(p + 2) : 0.0f;
-  a.w = left > 3 ? __ldcs(p + 3) : 0.0f;
-  return a;
-}
 
 __device__ __forceinline__ float comp(const float4& v, int c) {
   return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
@@ -358,10 +344,6 @@ template <int Lp>
 void* atr_kernel(bool vec) {
   return vec ? (void*)atr_batch_kernel<Lp, true>
              : (void*)atr_batch_kernel<Lp, false>;
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<std::uintptr_t>(p) & 15) == 0;
 }
 
 }  // namespace

@@ -115,9 +115,11 @@ def _declare(lib) -> None:
     lib.cot_sweep_tiled_t.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _VP,
                                       _VP, _VP, _I, _I, _I, _I, _Fl, _Fl,
                                       _I, _I, _I, _I, _I, _VP]
+    lib.cot_matvec_occupancy.argtypes = [_I, ctypes.POINTER(_I)]
     lib.cot_ax_minus_b_t.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I, _I,
-                                     _VP]
-    lib.cot_neg_at_r_t.argtypes = [_VP, _VP, _VP, _VP, _I, _I, _Fl, _VP]
+                                     _I, _VP]
+    lib.cot_neg_at_r_t.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
+                                   _I, _I, _I, _Fl, _VP]
     lib.cot_block_power_t.argtypes = [_VP, _VP, _I, _I, _I, _I, _Fl, _VP]
     lib.cot_batch_sweep_grid.argtypes = [_I, _I, _I, _I, ctypes.POINTER(_I)]
     lib.cot_batch_sweep_t.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _VP,
@@ -137,7 +139,7 @@ def _declare(lib) -> None:
     for fn in (lib.cot_sweep_grid, lib.cot_sweep_t,
                lib.cot_sweep_slab_grid, lib.cot_sweep_slab_t,
                lib.cot_sweep_tiled_plan, lib.cot_sweep_tiled_t,
-               lib.cot_ax_minus_b_t,
+               lib.cot_matvec_occupancy, lib.cot_ax_minus_b_t,
                lib.cot_neg_at_r_t, lib.cot_block_power_t,
                lib.cot_batch_sweep_grid, lib.cot_batch_sweep_t,
                lib.cot_matvec_batch_plan, lib.cot_ax_minus_b_batch_t,

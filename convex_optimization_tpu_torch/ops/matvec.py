@@ -12,6 +12,8 @@ to the f64 polish, whose certificate margin rests on it.
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
 import math
 
 import numpy as np
@@ -19,7 +21,13 @@ import torch
 
 from convex_optimization_tpu_torch.ops import _build
 
-_AX_THREADS = 256
+#: K2: columns per CTA (each of its 8 warps reads 4 KB of a row at once)
+K2_TILE_COLS = 1024
+#: K3: warps per CTA, columns per lane group (8 float4 steps of a warp),
+#: and the widest chunk of r a CTA stages (112 KB: two CTAs per SM)
+_K3_WARPS = 16
+K3_GROUP_COLS = 1024
+K3_MAX_COLS = 28 * K3_GROUP_COLS
 
 
 def _flat(A_t: torch.Tensor) -> torch.Tensor:
@@ -46,6 +54,74 @@ def _on_cuda(A_t: torch.Tensor) -> bool:
     return True
 
 
+def _aligned(*ts: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+# ------------------------------------------------------------ the plan ----
+
+def k3_chunking(m: int) -> tuple[int, int, int]:
+    """K3's split of the m columns (csrc/matvec.cu, K3 note): chunk width
+    W (a multiple of K3_GROUP_COLS, at most K3_MAX_COLS), chunks C =
+    ceil(m / W), none empty, and K, the lane groups chained into one
+    supergroup sum: ceil(sqrt(W / K3_GROUP_COLS))."""
+    C = -(-m // K3_MAX_COLS)
+    W = -(-(-(-m // C)) // K3_GROUP_COLS) * K3_GROUP_COLS
+    C = -(-m // W)
+    g = W // K3_GROUP_COLS
+    return W, C, math.isqrt(g - 1) + 1
+
+
+@dataclasses.dataclass(frozen=True)
+class MatvecPlan:
+    """K2's and K3's launch at one (n, m) on one card."""
+    vec: bool             # m % 4 == 0: the float4 instances (A_t permitting)
+    k2_tiles: int         # K2 column tiles (grid.x)
+    k2_slices: int        # K2 row slices (grid.y), partial rows (S, m)
+    k3_width: int         # W: columns of r per K3 chunk
+    k3_chunks: int        # C: K3 chunks (grid.y), partials (C, n) if C > 1
+    k3_ctas: int          # K3 CTAs per chunk (grid.x)
+    k3_chain: int         # K: lane groups per supergroup sum
+
+
+def matvec_tiling(n: int, m: int, sms: int, k2_per_sm: int,
+                  k3_per_sm: int) -> MatvecPlan:
+    """The pure part of ``matvec_plan``: K2's and K3's tiling at (n, m) on
+    a card of ``sms`` SMs where ``k2_per_sm`` and ``k3_per_sm`` CTAs of
+    each fit at once.  Each grid is one wave of those slots, never more
+    (unless K2's column tiles alone exceed it, or K3's chunks), and no
+    slice, chunk or CTA is empty."""
+    tiles = -(-m // K2_TILE_COLS)
+    S = max(1, min(n, k2_per_sm * sms // tiles))
+    S = -(-n // -(-n // S))                         # no empty slice
+    W, C, K = k3_chunking(m)
+    G = max(1, min(k3_per_sm * sms // C, -(-n // _K3_WARPS)))
+    return MatvecPlan(vec=m % 4 == 0, k2_tiles=tiles, k2_slices=S,
+                      k3_width=W, k3_chunks=C, k3_ctas=G, k3_chain=K)
+
+
+#: (device index, n, m) -> MatvecPlan
+_plan_cache: dict = {}
+
+
+def matvec_plan(device: torch.device, n: int, m: int) -> MatvecPlan:
+    """K2's and K3's launch plan at (n, m) on ``device``: the SM count
+    from torch, each kernel's co-resident CTAs per SM from the C side
+    (``cot_matvec_occupancy``), the tiling from ``matvec_tiling``."""
+    key = (device.index, n, m)
+    if key not in _plan_cache:
+        occ = (ctypes.c_int * 2)()
+        W = k3_chunking(m)[0]
+        with torch.cuda.device(device):
+            _build.check(_build.load().cot_matvec_occupancy(4 * W, occ),
+                         "cot_matvec_occupancy")
+        if min(occ) < 1:
+            raise RuntimeError(f"K2/K3 fit no SM: occupancy {list(occ)}")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        _plan_cache[key] = matvec_tiling(n, m, sms, occ[0], occ[1])
+    return _plan_cache[key]
+
+
 # ------------------------------------------------------------------ K2 ----
 
 def ax_minus_b_t_plain(A_t: torch.Tensor, x: torch.Tensor,
@@ -63,15 +139,14 @@ def ax_minus_b_t(A_t: torch.Tensor, x: torch.Tensor,
     for name, t, shape in (("A_t", A_t, A_t.shape), ("x", x, (n,)),
                            ("b", b, (m,))):
         _check(name, t, shape, A_t.device)
-    sms = torch.cuda.get_device_properties(A_t.device).multi_processor_count
-    tiles = -(-m // _AX_THREADS)
-    slices = max(1, min(n, -(-8 * sms // tiles)))
+    plan = matvec_plan(A_t.device, n, m)
     r = torch.empty((m,), dtype=torch.float32, device=A_t.device)
-    partials = torch.empty((slices, m), dtype=torch.float32,
+    partials = torch.empty((plan.k2_slices, m), dtype=torch.float32,
                            device=A_t.device)
     err = _build.load().cot_ax_minus_b_t(
         A_t.data_ptr(), x.data_ptr(), b.data_ptr(), r.data_ptr(),
-        partials.data_ptr(), n, m, slices, _build.stream_ptr(A_t.device))
+        partials.data_ptr(), n, m, plan.k2_slices,
+        int(plan.vec and _aligned(A_t)), _build.stream_ptr(A_t.device))
     _build.check(err, "ax_minus_b_t")
     _build.launches["ax_minus_b_t"] += 1
     return r
@@ -81,8 +156,12 @@ def ax_minus_b_t(A_t: torch.Tensor, x: torch.Tensor,
 
 def k3_depth(m: int) -> int:
     """Worst-case number of roundings any product passes through in K3's
-    dot of length m (csrc/matvec.cu, K3 note): ceil(m / 2048) + 11."""
-    return -(-m // 2048) + 11
+    dot of length m (csrc/matvec.cu, K3 note): 1 + 2 + 3 + (K - 1) +
+    (ceil(g / K) - 1) + 5 + (C - 1), with (W, C, K) = k3_chunking(m) and
+    g = W / 1024 lane groups per chunk."""
+    W, C, K = k3_chunking(m)
+    g = W // K3_GROUP_COLS
+    return 6 + (K - 1) + (-(-g // K) - 1) + 5 + (C - 1)
 
 
 def witness_gamma(m: int) -> float:
@@ -121,10 +200,17 @@ def neg_at_r_t(A_t: torch.Tensor, r: torch.Tensor, x: torch.Tensor,
     for name, t, shape in (("A_t", A_t, A_t.shape), ("r", r, (m,)),
                            ("x", x, (n,))):
         _check(name, t, shape, A_t.device)
+    plan = matvec_plan(A_t.device, n, m)
     z = torch.empty((n,), dtype=torch.float32, device=A_t.device)
+    partials = (torch.empty((plan.k3_chunks, n), dtype=torch.float32,
+                            device=A_t.device)
+                if plan.k3_chunks > 1 else None)
     err = _build.load().cot_neg_at_r_t(
-        A_t.data_ptr(), r.data_ptr(), x.data_ptr(), z.data_ptr(), n, m,
-        float(lam2), _build.stream_ptr(A_t.device))
+        A_t.data_ptr(), r.data_ptr(), x.data_ptr(), z.data_ptr(),
+        None if partials is None else partials.data_ptr(), n, m,
+        plan.k3_width, plan.k3_chunks, plan.k3_ctas, plan.k3_chain,
+        int(plan.vec and _aligned(A_t, r)), float(lam2),
+        _build.stream_ptr(A_t.device))
     _build.check(err, "neg_at_r_t")
     _build.launches["neg_at_r_t"] += 1
     return z

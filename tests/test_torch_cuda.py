@@ -6,12 +6,15 @@ them: ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
 
 Tolerances: the kernels and the plain versions (cuBLAS matvecs with TF32
 off) sum in different orders in f32, so results differ by rounding only:
-relative 1e-5 for one pass over A (K2, K3, one K1, K5, K8 or K9 sweep,
+relative 1e-5 for one pass over A (K2, one K1, K5, K8 or K9 sweep,
 K6, K7; K8's payload scalars to 1e-4 of their magnitude sums, sums of n
 terms in another order),
-1e-4 for the 48-iteration power estimate (K4).  K5 with a 0/1 row mask
-equals K5 on a masked copy of A bit for bit (torch.equal), with every
-penalty; K6 and K7 give the same bits on two launches (torch.equal).
+1e-4 for the 48-iteration power estimate (K4); K3 to its stated rounding
+bound witness_gamma(m) ||A_j|| ||r|| per column, on which the f64 polish's
+certificate rests.  K2 and K3 give the same bits on two launches, and on
+unaligned or slab views as on aligned copies (torch.equal).  K5 with a 0/1
+row mask equals K5 on a masked copy of A bit for bit (torch.equal), with
+every penalty; K6 and K7 give the same bits on two launches (torch.equal).
 Solves and paths on the card against the same on the CPU: certified in
 f64 (<= 2 tol: the f32 gap's own rounding), x within 5e-3 (two certified
 iterates) and step counts within one check.
@@ -62,7 +65,12 @@ from convex_optimization_tpu_torch.ops.matvec import (
 
 pytestmark = pytest.mark.cuda
 
-SHAPES = [(256, 1024, 32), (200, 800, 40), (10_000, 80 * 16, 80)]
+#: a ragged m (m % 4 != 0: the scalar-load instances) and config 2's m
+SHAPES = [(256, 1024, 32), (200, 800, 40), (10_000, 80 * 16, 80),
+          (201, 800, 40), (5000, 80 * 16, 80)]
+#: K2/K3's edges beside SHAPES: r in two chunks of K3 on the vector and
+#: the scalar instances (K3 stages at most 28672 columns of r per CTA)
+MATVEC_SHAPES = SHAPES + [(30_000, 80 * 4, 80), (28_673, 80 * 4, 80)]
 
 
 @pytest.fixture
@@ -83,20 +91,82 @@ def _data(m, n, B, device, seed=0):
     return p, torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
-@pytest.mark.parametrize("m,n,B", SHAPES)
+def _matvecs_match_plain(A_t, x, b, lam2):
+    """K2 and K3 against their plain versions on one A_t (any view):
+    K2 to 1e-5 of ||x|| ||A||_F + max|b|, K3 to its stated rounding bound
+    witness_gamma(m) ||A_j|| ||r|| per column, + 1e-6.  Returns the
+    kernels' (r, z)."""
+    m = A_t.shape[2]
+    r = ax_minus_b_t(A_t, x, b)
+    r_ref = ax_minus_b_t_plain(A_t, x, b)
+    scale = float(torch.linalg.vector_norm(x)) * float(
+        torch.linalg.vector_norm(A_t)) + float(b.abs().max())
+    assert float((r - r_ref).abs().max()) <= 1e-5 * scale
+    z = neg_at_r_t(A_t, r_ref, x, lam2)
+    z_ref = neg_at_r_t_plain(A_t, r_ref, x, lam2)
+    torch.cuda.synchronize()
+    col = torch.linalg.vector_norm(A_t.reshape(-1, m), dim=1)
+    bound = witness_gamma(m) * col * float(torch.linalg.vector_norm(r_ref))
+    assert bool(((z - z_ref).abs() <= bound + 1e-6).all())
+    return r, z
+
+
+@pytest.mark.parametrize("m,n,B", MATVEC_SHAPES)
 def test_matvec_kernels_match_plain(cuda, m, n, B):
     p, x = _data(m, n, B, cuda)
+    _matvecs_match_plain(p.A_t, x, p.b, p.lam2)
+
+
+@pytest.mark.parametrize("m,n,B", MATVEC_SHAPES)
+def test_matvec_kernels_are_deterministic(cuda, m, n, B):
+    """No atomics, a fixed summation order: two launches of K2 and of K3
+    on the same inputs give the same bits."""
+    p, x = _data(m, n, B, cuda)
     r = ax_minus_b_t(p.A_t, x, p.b)
-    r_ref = ax_minus_b_t_plain(p.A_t, x, p.b)
-    scale = float(torch.linalg.vector_norm(x)) * float(
-        torch.linalg.vector_norm(p.A_t)) + float(p.b.abs().max())
-    assert float((r - r_ref).abs().max()) <= 1e-5 * scale
-    z = neg_at_r_t(p.A_t, r_ref, x, p.lam2)
-    z_ref = neg_at_r_t_plain(p.A_t, r_ref, x, p.lam2)
-    torch.cuda.synchronize()
-    # K3's stated rounding bound per column, ||A_j|| = 1 here
-    bound = witness_gamma(m) * float(torch.linalg.vector_norm(r_ref))
-    assert float((z - z_ref).abs().max()) <= bound + 1e-6
+    assert torch.equal(r, ax_minus_b_t(p.A_t, x, p.b))
+    assert torch.equal(neg_at_r_t(p.A_t, r, x, p.lam2),
+                       neg_at_r_t(p.A_t, r, x, p.lam2))
+
+
+@pytest.mark.parametrize("m,n,B", [(10_000, 80 * 16, 80),
+                                   (5000, 80 * 16, 80), (256, 1024, 32)])
+def test_matvec_kernels_on_unaligned_views(cuda, m, n, B):
+    """A_t and r as contiguous views whose data pointers are 4 bytes past
+    a 16-byte boundary: the scalar-load instances run, agree with the
+    plain versions, and sum in the float4 instances' order (same bits as
+    on aligned copies)."""
+    p, x = _data(m, n, B, cuda)
+    buf = torch.empty(n * m + 1, device=cuda)
+    A_u = buf[1:].view(n // B, B, m)
+    A_u.copy_(p.A_t)
+    assert A_u.data_ptr() % 16 != 0 and A_u.is_contiguous()
+    rbuf = torch.empty(m + 1, device=cuda)
+    r_al = ax_minus_b_t_plain(p.A_t, x, p.b)
+    r_u = rbuf[1:]
+    r_u.copy_(r_al)
+    assert r_u.data_ptr() % 16 != 0
+    r, _ = _matvecs_match_plain(A_u, x, p.b, p.lam2)
+    assert torch.equal(r, ax_minus_b_t(p.A_t, x, p.b))
+    assert torch.equal(neg_at_r_t(A_u, r_u, x, p.lam2),
+                       neg_at_r_t(p.A_t, r_al, x, p.lam2))
+
+
+def test_matvec_kernels_on_a_slab_view(cuda):
+    """Rank 1's slab (625 x 80 x 10000) of the headline's A_t at P = 2, as
+    the sharded FISTA passes it: K2 and K3 on the view against their plain
+    versions, and bit for bit as on a contiguous copy."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    A_t = torch.randn(1250, 80, 10_000, generator=gen, device=cuda)
+    A_t /= torch.linalg.vector_norm(A_t, dim=2, keepdim=True)
+    slab = A_t[625:]
+    x = torch.randn(625 * 80, generator=gen, device=cuda)
+    b = torch.randn(10_000, generator=gen, device=cuda)
+    r, _ = _matvecs_match_plain(slab, x, b, 0.0)
+    copy = slab.clone()
+    del A_t
+    assert torch.equal(r, ax_minus_b_t(copy, x, b))
+    assert torch.equal(neg_at_r_t(slab, r, x, 0.0),
+                       neg_at_r_t(copy, r, x, 0.0))
 
 
 @pytest.mark.parametrize("m,n,B", SHAPES)

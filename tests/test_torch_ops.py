@@ -51,9 +51,12 @@ from convex_optimization_tpu_torch.ops.bcd_sweep_tiled import (
 from convex_optimization_tpu_torch.solvers.bcd import pick_sweep
 from convex_optimization_tpu_torch.utils import native
 from convex_optimization_tpu_torch.ops.matvec import (
+    K3_MAX_COLS,
     ax_minus_b_t,
     block_power_t,
+    k3_chunking,
     k3_depth,
+    matvec_tiling,
     neg_at_r_t,
     spectral_norm_sq_t,
     witness_gamma,
@@ -276,17 +279,63 @@ def test_wrappers_refuse_other_devices():
         block_power_t(A_t)
 
 
-def test_k3_depth_and_witness_gamma():
+def _first_k3_depth(m):
+    """K3's depth before its redesign: ceil(m / 2048) + 11."""
+    return -(-m // 2048) + 11
+
+
+@pytest.mark.parametrize("m", [8, 200, 2049, 5000, 10_000, 20_000, 50_000,
+                               10**6])
+def test_k3_depth_and_witness_gamma(m):
     eps = float(np.finfo(np.float32).eps)
-    assert k3_depth(10_000) == 16
-    assert k3_depth(2048) == 12 and k3_depth(2049) == 13
-    for m in (8, 200, 10_000, 20_000, 50_000, 10**6):
-        jax_gamma = (np.ceil(np.log2(max(m, 2))) + 4) * eps
-        g = witness_gamma(m)
-        assert g >= jax_gamma                  # never looser than JAX's
-        assert g >= k3_depth(m) * eps / 2      # covers K3's depth (D u)
-    # at the headline size the depth fits the JAX package's margin
-    assert witness_gamma(10_000) == (np.ceil(np.log2(10_000)) + 4) * eps
+    log2m = int(np.ceil(np.log2(m)))
+    jax_gamma = (log2m + 4) * eps
+    first = max(log2m + 4, -(-_first_k3_depth(m) // 2) + 4) * eps
+    g = witness_gamma(m)
+    # never below the JAX package's margin, never above the first design's
+    assert jax_gamma <= g <= first
+    assert g >= k3_depth(m) * eps / 2          # covers K3's depth (D u)
+    if 2048 <= m <= 50_000:
+        assert k3_depth(m) <= 2 * log2m
+        assert g == jax_gamma                  # the JAX margin holds
+
+
+def test_k3_depth_bounds_at_every_m():
+    """The K3 note's promise over every m: D(m) never above the first
+    design's, and within 2 ceil(log2 m) from 2048 to 50 000."""
+    for m in range(1, 60_001):
+        assert k3_depth(m) <= _first_k3_depth(m), m
+        if 2048 <= m <= 50_000:
+            assert k3_depth(m) <= 2 * int(np.ceil(np.log2(m))), m
+    assert [k3_depth(m) for m in (5000, 10_000, 20_000, 50_000)] == \
+        [14, 16, 18, 20]
+
+
+@pytest.mark.parametrize("n,m", [(100_000, 10_000), (50_000, 5_000),
+                                 (200_000, 20_000), (250_000, 50_000),
+                                 (800, 201), (1024, 256), (96, 8),
+                                 (320, 30_001)])
+@pytest.mark.parametrize("k2_per_sm,k3_per_sm", [(2, 2), (4, 3), (1, 1)])
+def test_matvec_tiling(n, m, k2_per_sm, k3_per_sm):
+    """K2's grid fills at most one wave of co-resident CTAs, K3's grid
+    too, no K2 slice, K3 chunk or K3 CTA is empty, and ragged m takes
+    the scalar instances."""
+    sms = 132
+    p = matvec_tiling(n, m, sms, k2_per_sm, k3_per_sm)
+    assert p.vec == (m % 4 == 0)
+    assert p.k2_tiles * 1024 >= m > (p.k2_tiles - 1) * 1024
+    assert p.k2_tiles * p.k2_slices <= max(k2_per_sm * sms, p.k2_tiles)
+    per_slice = -(-n // p.k2_slices)
+    assert (p.k2_slices - 1) * per_slice < n <= p.k2_slices * per_slice
+    W, C = p.k3_width, p.k3_chunks
+    assert W % 1024 == 0 and W <= K3_MAX_COLS
+    assert W * C >= m > W * (C - 1)
+    assert (W, C, p.k3_chain) == k3_chunking(m)
+    assert p.k3_ctas * C <= max(k3_per_sm * sms, C)
+    assert (p.k3_ctas - 1) * 16 < n
+    if m % 4 == 0 and n >= 50_000:     # the main paths fill the card
+        assert p.k2_tiles * p.k2_slices > (k2_per_sm * sms) // 2
+        assert p.k3_ctas * C > (k3_per_sm * sms) // 2
 
 
 def test_jax_runs_on_cpu_here():
