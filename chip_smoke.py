@@ -34,8 +34,10 @@ non-zero without one.  Phases, each of which fails the run if it fails:
      inputs (torch.equal), timed on config 2's A_t beside addmm and the
      bound at each L (one JSON line per L); K5 at L = 10 unmasked as the
      lambda path calls it, with a partly-zero keep mask and a fold row
-     mask as CV calls it, the masked K5 against K5 on a masked copy of A_t
-     (torch.equal), K5 at L = 1 against K1; K5 timed at L = 1, 4, 10, 16;
+     mask as CV calls it, each launched twice (torch.equal), the masked K5
+     against K5 on a masked copy of A_t (torch.equal), K5 at L = 1 against
+     K1; K5 timed at L = 1, 4, 10, 16 (with us per block and its launch
+     plan);
      K2 and K3 on config 2's A_t as in phase 3 (their JSON line);
   6. a 500 x 2000 10-point lambda path with bcd_batch and with bcd_pallas,
      on the card and on the CPU (plain versions): every converged point
@@ -459,8 +461,8 @@ def check_k5(A_t, b, lam1s, steps, pen, keep, rm, label: str,
     unmasked as the lambda path calls it, and with the keep mask ``keep``
     and the fold row mask ``rm`` as CV calls it; with ``masked_copy`` the
     masked sweep against the sweep on a masked copy of A_t, bit for bit.
-    Tolerance as K1's (1e-5, 1e-4 past 64 blocks).  Returns the largest
-    difference."""
+    Tolerance as K1's (1e-5, 1e-4 past 64 blocks); two launches on the
+    same inputs must give the same bits.  Returns the largest difference."""
     import torch
 
     from convex_optimization_tpu_torch.ops import bcd_sweep_batch as kb
@@ -477,6 +479,9 @@ def check_k5(A_t, b, lam1s, steps, pen, keep, rm, label: str,
                              ("masked", R0m, (keep, rm))):
         args = (A_t, X0, R_in, steps, lam1s, 0.0, pen) + masks
         Xk, Rk = kb.batch_sweep_t(*args)
+        Xr, Rr = kb.batch_sweep_t(*args)
+        require(torch.equal(Xk, Xr) and torch.equal(Rk, Rr),
+                f"{label} {what} {how}: two launches differ")
         Xp, Rp = kb.batch_sweep_t_plain(*args)
         require(float(Xp.abs().max()) > 0, f"{label} {what} {how}: X is 0")
         err = max(err, sweep_err(label, f"{what} {how}", Xk, Rk, Xp, Rp,
@@ -496,6 +501,16 @@ def check_k5(A_t, b, lam1s, steps, pen, keep, rm, label: str,
         require(torch.equal(X1, X2) and torch.equal(R1, R2),
                 f"{label} masked {what} differs from the masked copy")
     return err
+
+
+def k5_plan(device, B: int, m: int, L: int, gsize: int = 0) -> dict:
+    """K5's launch plan at (B, m, L, gsize), as a JSON line shows it."""
+    import dataclasses
+
+    from convex_optimization_tpu_torch.ops import bcd_sweep_batch as kb
+
+    plan = kb.batch_plan(device, B, m, L, gsize)
+    return dataclasses.asdict(plan) | {"smem_bytes": plan.smem_bytes}
 
 
 def compare_batch_kernels(A_t, b, label: str, stats: dict, timed: bool,
@@ -617,6 +632,8 @@ def compare_group_batch(A_rows, b, gsize: int, weights, B: int, label: str,
         print(json.dumps({
             "metric": f"k5_group_ms_{label}_A_t_{nb}x{B}x{m}",
             "L": L, "gsize": gsize, "k5_group": at["k5"],
+            "k5_us_per_block": 1e3 * at["k5"]["ms"] / nb,
+            "k5_plan": k5_plan(dev, B, m, L, gsize),
             "k5_l1_ms_same_tile": l1_ms,
             "gpu": card[0], "power_limit": card[1]}), flush=True)
     torch.cuda.synchronize()
@@ -733,7 +750,7 @@ def config2_path(problem, gpu: str, power: str, stats: dict
         "achieved_gb_s": 4.0 * C2_M * C2_N * passes * res.sweeps
         / sweep_s / 1e9,
         "passes_per_sweep": passes,
-        "f32_rel_gap": res.gaps.tolist(),
+        "returned_rel_gap": res.gaps.tolist(),
         "f64_rel_gap": f64,
         "nnz": (res.xs != 0).sum(dim=1).tolist(),
         "lambdas": np.asarray(res.lambdas.cpu()).tolist(),
@@ -1047,7 +1064,7 @@ def config4_group_path(problem, A_np, b_np, gpu: str, power: str) -> None:
         "ms_per_sweep": 1e3 * wall / max(res.sweeps, 1),
         "achieved_gb_s": 4.0 * m * n * passes * res.sweeps / wall / 1e9,
         "passes_per_sweep": passes,
-        "f32_rel_gap": res.gaps.tolist(),
+        "returned_rel_gap": res.gaps.tolist(),
         "f64_rel_gap": f64,
         "active_groups": groups.tolist(),
         "last_polish_f64_rel_gap": pr.rel_gap,
@@ -1773,9 +1790,14 @@ def main() -> None:
     c2_matvec = compare_matvecs(p2.with_block(80).A_t, p2.b,
                                 torch.randn(C2_N, generator=gen).to(device),
                                 "config2", stats, True, card2, main=False)
+    nb2 = C2_N // 80
     print(json.dumps({
         "metric": f"k5_ms_per_sweep_by_L_{C2_M}x{C2_N}_B80",
         "k5_ms": {str(k): v for k, v in by_L.items() if k != "k1"},
+        "k5_us_per_block": {str(k): 1e3 * v / nb2 for k, v in by_L.items()
+                            if k != "k1"},
+        "k5_plan": {str(k): k5_plan(device, 80, C2_M, k) for k in by_L
+                    if k != "k1"},
         "k1_ms": by_L["k1"],
         "k5_ms_per_point": {str(k): v / k for k, v in by_L.items()
                             if k != "k1"},

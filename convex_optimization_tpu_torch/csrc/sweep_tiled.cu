@@ -62,28 +62,6 @@ constexpr int kStages = 3;
 constexpr int kChunkBytes = 32 * 1024;
 constexpr int kMaxSmemBytes = 227 * 1024;
 
-// V floats per copy: 4 (16 bytes, rows and m multiples of 4) or 1.
-template <int V>
-__device__ __forceinline__ void cp_async(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if constexpr (V == 4) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-                 "l"(src));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-                 "l"(src));
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 template <int V>
 __global__ void __launch_bounds__(kThreads)
 tiled_sweep_kernel(const float* __restrict__ A_t,

@@ -13,8 +13,9 @@ PyTorch version for CPU tensors and launches its kernel, or raises, for
 CUDA tensors.
 
 The TPU module's VMEM model (``fits_vmem_vpu_batch``) and its DMA-staged row
-mask do not carry over: the H100's limit is K5's shared-memory tile, which
-the C side checks (``batch_grid``), and the row mask is a plain operand.
+mask do not carry over: the H100's limit is K5's shared memory, which its
+launch plan (``batch_sweep_tiling``, checked on the card by ``batch_plan``)
+fits, and the row mask is a plain operand.
 
 Row mask: with a 0/1 ``row_mask`` (m,) the sweep is that of the row-masked
 problem (rm * A, rm * b) on the unmasked A, provided R comes in masked; the
@@ -25,6 +26,7 @@ same sweep on a masked copy of A (both in the plain version and in K5).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -34,16 +36,32 @@ from convex_optimization_tpu_torch.ops.bcd_sweep import (
     KIND_CODE,
     group_operands,
 )
-from convex_optimization_tpu_torch.ops.matvec import _check, _on_cuda
+from convex_optimization_tpu_torch.ops.matvec import (
+    _aligned,
+    _check,
+    _on_cuda,
+)
 
-#: most path points one batched launch carries (K5 keeps L accumulators
-#: per thread in registers, sized for this; K6 and K7 are templated on L
-#: rounded up to 4, up to it)
+#: most path points one batched launch carries (K5, K6 and K7 are
+#: templated on L rounded up to 4, up to it)
 MAX_BATCH = 16
 
-#: (device index, B, m, L, gsize) -> K5 cooperative grid size, 0 when no
-#: fit (gsize 0 outside group_l2: the group prox needs more shared memory)
-_grid_cache: dict = {}
+#: K5's threads per CTA (csrc/sweep_batch.cu kThreads), the shared memory
+#: one CTA may take on the H100, the most segments a phase is split into,
+#: and the threads phase 1's segments aim at (each of its units keeps 2 LP
+#: independent sums, so fewer threads than phase 2's keep the SM busy)
+K5_THREADS = 384
+K5_MAX_SMEM_BYTES = 227 * 1024
+K5_MAX_SEGMENTS = 8
+K5_PHASE1_THREADS = 256
+#: the shortest tile row (floats) that K5 loads with the bulk-copy engine:
+#: one copy per row of a CTA's tile, which pays off on long rows (608 bytes
+#: at config 4) and loses to 16-byte cp.async on short ones (160 bytes at
+#: config 2; PERF.md)
+K5_BULK_MIN_ROWS = 128
+#: (device index, B, m, L, gsize) -> K5's BatchSweepPlan, None when no fit
+#: (gsize 0 outside group_l2: the group prox needs more shared memory)
+_k5_plan_cache: dict = {}
 #: (device index, n, m, L) -> K6/K7 launch plan (matvec_batch_plan)
 _plan_cache: dict = {}
 
@@ -124,21 +142,122 @@ def batch_sweep_t_plain(A_t: torch.Tensor, X: torch.Tensor, R: torch.Tensor,
     return X, R
 
 
-def batch_grid(device: torch.device, B: int, m: int, L: int,
-               gsize: int = 0) -> int:
-    """Cooperative grid size of K5 at (B, m, L) on ``device``; 0 when its
-    shared-memory tile does not fit.  ``gsize``: the group width of a
-    group_l2 launch, 0 otherwise."""
+def _up4(v: int, vec: bool) -> int:
+    return -(-v // 4) * 4 if vec else v
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchSweepPlan:
+    """K5's launch at one (B, m, L, gsize): ``grid`` CTAs of ``rows`` rows
+    each; tile rows of stride ``ld`` floats in shared memory; ``vec``: the
+    float4 instance (m % 4 == 0, rows % 4 == 0, ld % 8 == 4), whose copies
+    are 16 bytes when A_t is 16-byte aligned; ``prefetch``: the b-rows of
+    tile j + 1 in flight across block j's barriers (B: a double buffer);
+    ``s1``, ``s2``: the segments phase 1 and phase 2 are split into;
+    ``rw``: the warps that split each reduced pair's G partials (all 16, or
+    1 with no shared scratch); ``bulk``: load the tile with the bulk-copy
+    engine (when A_t is aligned) rather than 16-byte cp.async."""
+    B: int
+    L: int
+    gsize: int
+    grid: int
+    rows: int
+    ld: int
+    vec: bool
+    prefetch: int
+    s1: int
+    s2: int
+    rw: int
+    bulk: bool = False
+
+    @property
+    def smem_bytes(self) -> int:
+        """Shared memory of the layout (csrc/sweep_batch.cu ``layout``)."""
+        B, L, rows, vec = self.B, self.L, self.rows, self.vec
+        LP = -(-L // 4) * 4
+        red = max((self.s1 - 1) * 2 * LP * -(-B // 2),
+                  (self.s2 - 1) * LP * rows)
+        floats = ((B + self.prefetch) * self.ld + _up4(L * rows, vec)
+                  + _up4(rows, vec) + _up4(B * (LP if vec else L), vec)
+                  + _up4(red, vec))
+        if self.rw > 1:
+            floats += 32 * self.rw
+        if self.gsize:
+            floats += L * B + L * (B // self.gsize)
+        if vec:                           # two mbarriers for the bulk copies
+            floats = _up4(floats, vec) + 4
+        return 4 * floats
+
+
+def batch_sweep_tiling(B: int, m: int, L: int, gsize: int, sms: int,
+                       smem_limit: int = K5_MAX_SMEM_BYTES
+                       ) -> BatchSweepPlan | None:
+    """The pure part of ``batch_plan``: K5's plan on a card of ``sms`` SMs
+    with ``smem_limit`` bytes of shared memory per CTA, or None when even
+    the plainest layout does not fit.
+
+    One CTA per SM (at most m), rows = ceil(m / grid); the float4 instance
+    (when m % 4 == 0) rounds rows up to 4 and pads ld to 4 mod 8, else ld
+    is odd (both keep phase 1's tile reads conflict-free).  Phase 1 (units
+    of two tile rows) splits into s1 segments, about K5_PHASE1_THREADS
+    threads in all; phase 2 (units of an l-quad and a row unit) into s2, at
+    most K5_THREADS threads; both at most K5_MAX_SEGMENTS, or 1 where their
+    scratch does not fit; the reduction's 16 warps share a (16, 32) scratch.
+    The spare shared memory then holds ``prefetch`` b-rows of the next
+    tile, up to B.  The last resort (scalar, unsplit, one reducing warp, no
+    prefetch) is the layout of the first K5 design, so every shape that
+    design took still fits."""
+    G0 = min(sms, m)
+    LP = -(-L // 4) * 4
+    for vec in ((True, False) if m % 4 == 0 else (False,)):
+        rows = -(-m // G0)
+        if vec:
+            rows = -(-rows // 4) * 4
+            ld = rows if rows % 8 == 4 else rows + 4
+        else:
+            ld = rows | 1
+        grid = -(-m // rows)
+        units2 = LP // 4 * (rows // 4 if vec else rows)
+        s1 = max(1, min(K5_MAX_SEGMENTS, K5_PHASE1_THREADS // -(-B // 2)))
+        s2 = max(1, min(K5_MAX_SEGMENTS, K5_THREADS // units2, B))
+        for seg in ((s1, s2, K5_THREADS // 32), (1, 1, 1)):
+            plan = BatchSweepPlan(B, L, gsize, grid, rows, ld, vec, 0, *seg)
+            spare = smem_limit - plan.smem_bytes
+            if spare >= 0:
+                return dataclasses.replace(
+                    plan, prefetch=min(B, spare // (4 * ld)),
+                    bulk=vec and rows >= K5_BULK_MIN_ROWS)
+    return None
+
+
+def batch_plan(device: torch.device, B: int, m: int, L: int,
+               gsize: int = 0) -> BatchSweepPlan | None:
+    """K5's plan at (B, m, L, gsize) on ``device`` (None when no fit): the
+    SM count from torch, the tiling from ``batch_sweep_tiling``, checked on
+    the C side (``cot_batch_sweep_check``: the same shared-memory bytes,
+    and one CTA per SM co-resident for the cooperative launch)."""
     key = (device.index, B, m, L, gsize)
-    if key not in _grid_cache:
-        lib = _build.load()
-        g = ctypes.c_int(0)
-        with torch.cuda.device(device):
-            _build.check(lib.cot_batch_sweep_grid(B, m, L, gsize,
-                                                  ctypes.byref(g)),
-                         "cot_batch_sweep_grid")
-        _grid_cache[key] = g.value
-    return _grid_cache[key]
+    if key not in _k5_plan_cache:
+        props = torch.cuda.get_device_properties(device)
+        limit = min(K5_MAX_SMEM_BYTES,
+                    getattr(props, "shared_memory_per_block_optin",
+                            K5_MAX_SMEM_BYTES))
+        plan = batch_sweep_tiling(B, m, L, gsize,
+                                  props.multi_processor_count, limit)
+        if plan is not None:
+            out = (ctypes.c_int * 2)()
+            with torch.cuda.device(device):
+                _build.check(_build.load().cot_batch_sweep_check(
+                    B, L, gsize, plan.rows, plan.ld, plan.prefetch, plan.s1,
+                    plan.s2, plan.rw, int(plan.vec), out),
+                    "cot_batch_sweep_check")
+            if out[0] != plan.smem_bytes:
+                raise RuntimeError(f"K5 layout: C side {out[0]} bytes, "
+                                   f"plan {plan.smem_bytes}")
+            if out[1] < 1:
+                raise RuntimeError(f"K5 plan {plan} fits no SM")
+        _k5_plan_cache[key] = plan
+    return _k5_plan_cache[key]
 
 
 def eligible_batch(m: int, n: int, B: int, L: int, *,
@@ -148,12 +267,12 @@ def eligible_batch(m: int, n: int, B: int, L: int, *,
     """Whether the batched kernels take this shape: f32, 1 <= L <=
     MAX_BATCH, B a multiple of 8 dividing n (and of ``gsize``, the group
     width of a group_l2 problem, 0 otherwise), and on a CUDA device a K5
-    tile that fits shared memory (asked of the C side)."""
+    plan that fits shared memory (``batch_plan``)."""
     ok = (dtype == torch.float32 and 1 <= L <= MAX_BATCH
           and B >= 8 and B % 8 == 0 and n % B == 0
           and (gsize == 0 or B % gsize == 0))
     if ok and device is not None and device.type == "cuda":
-        ok = batch_grid(device, B, m, L, gsize) > 0
+        ok = batch_plan(device, B, m, L, gsize) is not None
     return ok
 
 
@@ -194,14 +313,18 @@ def batch_sweep_t(A_t: torch.Tensor, X: torch.Tensor, R: torch.Tensor,
     gsize, w = group_operands(penalty, nb * B, B, dev)
     if penalty.kind != "group_l2":
         gsize = 0
-    grid = batch_grid(dev, B, m, L, gsize)
-    if grid == 0:
+    plan = batch_plan(dev, B, m, L, gsize)
+    if plan is None:
         raise ValueError(f"K5 tile of B={B}, m={m}, L={L} does not fit in "
                          "shared memory")
+    # the tile's copies: bulk or 16-byte cp.async (the float4 instance on
+    # an aligned A_t), else 4-byte cp.async
+    copy = (2 if plan.bulk else 1) if plan.vec and _aligned(A_t) else 0
     X_out = torch.empty_like(X)
     R_out = torch.empty_like(R)
-    partials = torch.empty(((grid + 1) * L * B,), dtype=torch.float32,
+    partials = torch.empty(((plan.grid + 1) * L * B,), dtype=torch.float32,
                            device=dev)
+    bar = torch.zeros((1,), dtype=torch.int32, device=dev)  # grid barrier
     err = _build.load().cot_batch_sweep_t(
         A_t.data_ptr(), X.data_ptr(), R.data_ptr(), steps.data_ptr(),
         lam1s.data_ptr(),
@@ -209,7 +332,9 @@ def batch_sweep_t(A_t: torch.Tensor, X: torch.Tensor, R: torch.Tensor,
         None if row_mask is None else row_mask.data_ptr(),
         None if w is None else w.data_ptr(),
         X_out.data_ptr(), R_out.data_ptr(), partials.data_ptr(),
-        nb, B, m, L, gsize, float(lam2), KIND_CODE[penalty.kind], grid,
+        bar.data_ptr(), nb, B, m, L, plan.gsize, float(lam2),
+        KIND_CODE[penalty.kind], plan.grid, plan.rows, plan.ld,
+        plan.prefetch, plan.s1, plan.s2, plan.rw, int(plan.vec), copy,
         _build.stream_ptr(dev))
     _build.check(err, "batch_sweep_t")
     _build.launches["batch_sweep_t"] += 1

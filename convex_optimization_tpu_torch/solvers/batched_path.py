@@ -8,8 +8,19 @@ iterates, each row with its own threshold, so the whole grid costs
 max_l sweeps(lam_l) reads of A instead of their sum.  Points start cold;
 at every check each point adopts its larger-lambda neighbour's iterate
 when that is primal-better at its own lambda (the cascade warm start).
-Certification matches lambda_path: per-point f32 duality gaps with
-best-iterate tracking and stall detection.
+Certification: per-point f32 duality gaps with best-iterate tracking and
+stall detection, as in lambda_path; then, where the JAX package stops on
+the f32 readings alone, every point whose best reading is at or under tol
+is read again in f64 (A in chunks, no whole f64 copy) before it is called
+converged.  The f32 solve floors at a relative gap of a few 1e-6 (the
+polish module's note), and its monitor misreads a gap near that floor: a
+128 x 512 group instance at tol 1e-6 reads 0 where the f64 gap is 1.3e-6.
+A point whose claim fails in f64 is finished by the f64 support polish
+(``solvers/polish.py``) and read in f64 again; the gap returned is that
+reading, and its x the polished one rounded to f32.  Where every claim
+holds, the path is the JAX package's, with f64 gaps returned.  CV's fold
+paths (``certify=False``) keep the JAX rule: only their x reach the
+held-out error, and their gaps are not returned.
 
 The JAX package runs the loop as one jitted while_loop; here it is a host
 loop, as in ``solvers/bcd.py``: ``gap_every`` K5 sweeps, then the check on
@@ -57,6 +68,7 @@ from convex_optimization_tpu_torch.solvers.lambda_path import (
     lambda_path,
     path_grid,
 )
+from convex_optimization_tpu_torch.solvers.polish import polish_support
 
 
 class _BatchState(NamedTuple):
@@ -169,13 +181,48 @@ def _run_batched_loop(state: _BatchState, lam1s: torch.Tensor,
     return state
 
 
+def _confirm(state: _BatchState, lam1s: torch.Tensor, tol: float,
+             exact_gap: Callable, polish: Callable) -> _BatchState:
+    """Read in f64 every point whose best f32 reading is at or under tol;
+    polish each one that fails there and read it in f64 again.  The f64
+    readings become the points' gaps (module docstring)."""
+    claim = state.best_rel <= tol
+    if not bool(claim.any()):
+        return state
+    rel, gap, R = exact_gap(state.X_best, claim)
+    failed = claim & (rel > tol)
+    X_best = state.X_best
+    if bool(failed.any()):
+        nb, _, B = X_best.shape
+        X_pol = X_best.clone()
+        for l in failed.nonzero().squeeze(1).tolist():
+            x = polish(float(lam1s[l]), X_best[:, l].reshape(nb * B))
+            X_pol[:, l] = x.reshape(nb, B)
+        rel2, gap2, R2 = exact_gap(X_pol, failed)
+        keep = failed & (rel2 < rel)
+        X_best = torch.where(keep[None, :, None], X_pol, X_best)
+        rel = torch.where(keep, rel2, rel)
+        gap = torch.where(keep, gap2, gap)
+        R = torch.where(keep[:, None], R2, R)
+    dt = state.best_rel.dtype
+    return state._replace(
+        X_best=X_best,
+        R_best=torch.where(claim[:, None], R.to(dt), state.R_best),
+        best_rel=torch.where(claim, rel.to(dt), state.best_rel),
+        best_gap=torch.where(claim, gap.to(dt), state.best_gap))
+
+
 def _solve_batched(A_t: torch.Tensor, b: torch.Tensor, lam1s: torch.Tensor,
                    lam2: float, steps: torch.Tensor, penalty, weights,
                    state0: _BatchState, rm: torch.Tensor | None,
-                   gsize: int, cfg: SolverConfig) -> _BatchState:
+                   gsize: int, cfg: SolverConfig,
+                   polish: Callable | None) -> _BatchState:
     """One chunk of the grid.  rm (m,) solves the row-masked problem
     (rm * A, rm * b) on the same A_t: the mask gates K5's residual updates
-    and the refresh, so every gap quantity is the masked problem's."""
+    and the refresh, so every gap quantity is the masked problem's.
+    polish(lam, x (n,)) -> x (n,) is the f64 support polish of that
+    problem at lam, rounded to A_t's dtype; None skips the f64
+    confirmation."""
     kind = penalty.kind
 
     def sweep_once(X, R):
@@ -199,7 +246,48 @@ def _solve_batched(A_t: torch.Tensor, b: torch.Tensor, lam1s: torch.Tensor,
         )
         return R, info, rho_aug, base_val
 
-    return _run_batched_loop(state0, lam1s, cfg, sweep_once, gap_check)
+    def exact_gap(X, sel):
+        # the check's gap in f64 for the points in sel, with A_t read in
+        # chunks of ~256 MB of f64; returns (rel, gap) over (L,) and the
+        # residuals (L, m), zero outside sel
+        nb, L, B = X.shape
+        m = b.shape[0]
+        f64 = torch.float64
+        idx = sel.nonzero().squeeze(1)
+        X64 = X[:, idx].to(f64)
+        b64 = b.to(f64)
+        step = max(1, (32 << 20) // (B * m))
+        R64 = -b64[None, :].repeat(idx.shape[0], 1)
+        for k0 in range(0, nb, step):
+            R64 += torch.einsum("kbm,klb->lm", A_t[k0:k0 + step].to(f64),
+                                X64[k0:k0 + step])
+        if rm is not None:
+            R64 = rm.to(f64)[None, :] * R64
+        Z64 = torch.empty_like(X64)
+        for k0 in range(0, nb, step):
+            Z64[k0:k0 + step] = -torch.einsum(
+                "kbm,lm->klb", A_t[k0:k0 + step].to(f64), R64)
+        Z64 -= lam2 * X64
+        lam64 = lam1s[idx].to(f64)
+        w64 = None if weights is None else weights.to(f64)
+        base_val, base_dual = _penalty_parts(kind, gsize, w64, X64, Z64)
+        info = gap_from_parts(
+            rho_dot_b=-torch.mv(R64, b64),
+            rho_aug_sq=(R64 * R64).sum(dim=1)
+            + lam2 * (X64 * X64).sum(dim=(0, 2)),
+            g_value=lam64 * base_val,
+            dual_norm_value=base_dual / torch.clamp(lam64, min=1e-30),
+        )
+        rel = torch.zeros((L,), dtype=f64, device=X.device)
+        gap = torch.zeros((L,), dtype=f64, device=X.device)
+        R = torch.zeros((L, m), dtype=f64, device=X.device)
+        return (rel.index_put((idx,), info.rel_gap),
+                gap.index_put((idx,), info.gap), R.index_put((idx,), R64))
+
+    state = _run_batched_loop(state0, lam1s, cfg, sweep_once, gap_check)
+    if polish is None:
+        return state
+    return _confirm(state, lam1s, cfg.tol, exact_gap, polish)
 
 
 def _batch_gate_reason(problem: Problem, picked: tuple[int, int],
@@ -229,7 +317,8 @@ def chunk_size(L: int) -> int:
 class PreparedBatch(NamedTuple):
     """One-time batched-solver set-up (block choice, K4), reusable across
     grids and row masks: K-fold CV's folds and refit share one."""
-    solve_chunk: Callable | None  # (lam_c, x_warm, r_warm, rm) -> state
+    solve_chunk: Callable | None  # (lam_c, x_warm, r_warm, rm, certify)
+                                  # -> state
     A_t: torch.Tensor | None      # the (n_blocks, B, m) view of A
     reason: str | None            # not None => gate failed
 
@@ -258,13 +347,25 @@ def prepare_batched_solver(problem: Problem, cfg: SolverConfig, *,
         weights = problem.penalty._gweights(
             problem.dtype, problem.device).reshape(n_blocks, 1, B // multiple)
 
-    def solve_chunk(lam_c, x_warm, r_warm, rm=None):
+    def solve_chunk(lam_c, x_warm, r_warm, rm=None, certify=True):
         state = _init_batch_state(n_blocks, B, problem.m, lam_c.shape[0],
                                   problem.b, x_warm, r_warm, problem.dtype,
                                   rm)
+
+        def polish(lam, x):
+            p = problem
+            if rm is not None:
+                # only for a claim the f32 floor failed: a masked copy
+                p = dataclasses.replace(problem, A_t=problem.A_t * rm,
+                                        b=problem.b * rm)
+            pr = polish_support(p.with_lam1(lam), x, tol=cfg.tol)
+            return torch.as_tensor(pr.x, dtype=problem.dtype,
+                                   device=problem.device)
+
         return _solve_batched(A_t, problem.b, lam_c.contiguous(),
                               problem.lam2, steps, problem.penalty, weights,
-                              state, rm, multiple, cfg)
+                              state, rm, multiple, cfg,
+                              polish if certify else None)
 
     return PreparedBatch(solve_chunk, A_t, None)
 
@@ -278,6 +379,7 @@ def batched_lambda_path(
     lambdas: torch.Tensor | None = None,
     row_mask: torch.Tensor | None = None,
     prepared: PreparedBatch | None = None,
+    certify: bool = True,
 ) -> PathResult:
     """Solve the whole lambda grid at once; see the module docstring.
 
@@ -287,7 +389,8 @@ def batched_lambda_path(
     ran.  With ``row_mask`` ((m,), 0/1) the path solves the row-masked
     problem (rm * A, rm * b) against the same A_t.  Pass ``prepared``
     (from :func:`prepare_batched_solver`) to share one set-up across
-    calls, e.g. across CV folds."""
+    calls, e.g. across CV folds.  ``certify=False`` skips the f64
+    confirmation of the converged points (module docstring)."""
     rm = None
     if row_mask is not None:
         rm = torch.as_tensor(row_mask, dtype=problem.dtype,
@@ -323,7 +426,7 @@ def batched_lambda_path(
     x_warm = r_warm = None
     for c0 in range(0, L, chunk):
         lam_c = lambdas[c0:c0 + chunk]
-        final = prep.solve_chunk(lam_c, x_warm, r_warm, rm)
+        final = prep.solve_chunk(lam_c, x_warm, r_warm, rm, certify)
         Lc = lam_c.shape[0]
         xs_parts.append(rows_of(final.X_best))
         gaps_parts.append(final.best_rel)

@@ -207,7 +207,7 @@ def _cv_folds_kernel_routed(problem: Problem, cfg: SolverConfig, lambdas,
     for f in range(k):
         tm = torch.as_tensor(masks[f], device=problem.device)
         pr = batched_lambda_path(problem, cfg, lambdas=lambdas * scales[f],
-                                 row_mask=tm, prepared=prep)
+                                 row_mask=tm, prepared=prep, certify=False)
         val_rows.append(_val_mse(prep.A_t, pr.xs, problem.b, 1.0 - tm))
         fold_sweeps.append(pr.sweeps)
     return torch.stack(val_rows), "bcd_batch", prep, lambdas, fold_sweeps

@@ -14,7 +14,8 @@ bound witness_gamma(m) ||A_j|| ||r|| per column, on which the f64 polish's
 certificate rests.  K2 and K3 give the same bits on two launches, and on
 unaligned or slab views as on aligned copies (torch.equal).  K5 with a 0/1
 row mask equals K5 on a masked copy of A bit for bit (torch.equal), with
-every penalty; K6 and K7 give the same bits on two launches (torch.equal).
+every penalty; K5, K6 and K7 give the same bits on two launches, and K5 on
+an unaligned A_t view the bits of the aligned copy (torch.equal).
 Solves and paths on the card against the same on the CPU: certified in
 f64 (<= 2 tol: the f32 gap's own rounding), x within 5e-3 (two certified
 iterates) and step counts within one check.
@@ -347,11 +348,12 @@ def _batch_penalty(kind, n, B, device):
     return Penalty(lam1=1.0, kind=kind)
 
 
+@pytest.mark.parametrize("L", [3, 4, 16])
 @pytest.mark.parametrize("kind", ["l1", "nonneg_l1", "group_l2"])
 @pytest.mark.parametrize("m,n,B", SHAPES)
-def test_batch_sweep_kernel_matches_plain(cuda, m, n, B, kind):
+def test_batch_sweep_kernel_matches_plain(cuda, m, n, B, kind, L):
     p, _ = _data(m, n, B, cuda)
-    X, R, keep, _, lam1s, steps = _batch(p, 4)
+    X, R, keep, _, lam1s, steps = _batch(p, L)
     pen = _batch_penalty(kind, n, B, cuda)
     if kind == "nonneg_l1":
         X = X.abs()
@@ -395,6 +397,63 @@ def test_batch_sweep_kernel_at_one_lambda_matches_k1(cuda, m, n, B):
     x1, r1 = sweep_t(p.A_t, X[:, 0, :].reshape(-1), R[0], steps, keep, pen,
                      p.lam2)
     _sweeps_close(X5[:, 0, :].reshape(-1), R5[0], x1, r1)
+
+
+@pytest.mark.parametrize("kind", ["l1", "group_l2"])
+@pytest.mark.parametrize("m,n,B", SHAPES)
+def test_batch_sweep_kernel_is_deterministic(cuda, m, n, B, kind):
+    """No float atomics, a fixed summation order: two launches of K5 on the
+    same inputs give the same bits, masked or not."""
+    p, _ = _data(m, n, B, cuda)
+    X, R, keep, rm, lam1s, steps = _batch(p, 10)
+    pen = _batch_penalty(kind, n, B, cuda)
+    for masks in ((keep, None), (keep, rm)):
+        X1, R1 = batch_sweep_t(p.A_t, X, R, steps, lam1s, p.lam2, pen, *masks)
+        X2, R2 = batch_sweep_t(p.A_t, X, R, steps, lam1s, p.lam2, pen, *masks)
+        assert torch.equal(X1, X2) and torch.equal(R1, R2)
+
+
+@pytest.mark.parametrize("kind", ["l1", "group_l2"])
+@pytest.mark.parametrize("m,n,B", [(256, 1024, 32), (5000, 80 * 16, 80)])
+def test_batch_sweep_kernel_on_an_unaligned_view(cuda, m, n, B, kind):
+    """A contiguous A_t view 4 bytes past a 16-byte boundary takes the
+    4-byte copies and gives the bits of the aligned copy."""
+    p, _ = _data(m, n, B, cuda)
+    X, R, keep, rm, lam1s, steps = _batch(p, 4)
+    pen = _batch_penalty(kind, n, B, cuda)
+    buf = torch.empty(p.A_t.numel() + 1, device=cuda)
+    A_u = buf[1:].view(p.A_t.shape)
+    A_u.copy_(p.A_t)
+    assert A_u.is_contiguous() and A_u.data_ptr() % 16 != 0
+    for masks in ((keep, None), (keep, rm)):
+        X1, R1 = batch_sweep_t(A_u, X, R, steps, lam1s, p.lam2, pen, *masks)
+        X2, R2 = batch_sweep_t(p.A_t, X, R, steps, lam1s, p.lam2, pen,
+                               *masks)
+        assert torch.equal(X1, X2) and torch.equal(R1, R2)
+
+
+def test_batch_sweep_kernel_at_config4_group_widths(cuda):
+    """Config 4's group tile (B = 200, m = 20 000, groups of 200, L = 10),
+    whose plan prefetches only part of the next tile, against the plain
+    version over 4 blocks, masked and not."""
+    from convex_optimization_tpu_torch.ops.bcd_sweep_batch import batch_plan
+
+    m, B, gsize = 20_000, 200, 200
+    p, _ = _data(m, 4 * B, B, cuda)
+    plan = batch_plan(cuda, B, m, 10, gsize)
+    assert 0 < plan.prefetch < B
+    X, R, keep, rm, lam1s, steps = _batch(p, 10)
+    w = np.random.default_rng(5).uniform(0.5, 1.5, 4 * B // gsize)
+    pen = Penalty(lam1=1.0, kind="group_l2", ngroups=4 * B // gsize,
+                  weights=torch.as_tensor(w, dtype=torch.float32,
+                                          device=cuda))
+    for masks, R_in in (((keep, None), R), ((keep, rm), rm * R)):
+        X_k, R_k = batch_sweep_t(p.A_t, X, R_in, steps, lam1s, p.lam2, pen,
+                                 *masks)
+        X_p, R_p = batch_sweep_t_plain(p.A_t, X, R_in, steps, lam1s, p.lam2,
+                                       pen, *masks)
+        _sweeps_close(X_k, R_k, X_p, R_p)
+        assert bool((rows_of(X_k)[:, ~keep] == 0).all())
 
 
 def test_batched_path_on_card_matches_cpu(cuda):

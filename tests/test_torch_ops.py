@@ -43,6 +43,11 @@ from convex_optimization_tpu_torch.ops.bcd_sweep import (
     sweep_t,
     to_tblock_major,
 )
+from convex_optimization_tpu_torch.ops.bcd_sweep_batch import (
+    K5_MAX_SMEM_BYTES,
+    K5_THREADS,
+    batch_sweep_tiling,
+)
 from convex_optimization_tpu_torch.ops.bcd_sweep_ref import bcd_sweep_ref
 from convex_optimization_tpu_torch.ops.bcd_sweep_tiled import (
     sweep_tiled_t,
@@ -336,6 +341,88 @@ def test_matvec_tiling(n, m, k2_per_sm, k3_per_sm):
     if m % 4 == 0 and n >= 50_000:     # the main paths fill the card
         assert p.k2_tiles * p.k2_slices > (k2_per_sm * sms) // 2
         assert p.k3_ctas * C > (k3_per_sm * sms) // 2
+
+
+def _first_k5_smem(B, m, L, gsize, sms=132):
+    """The first K5 design's shared memory (the old rule): one CTA per SM,
+    an odd tile stride rows | 1, L + 1 residual and mask rows, dx (L, B),
+    and for group_l2 X's slice and the group scales."""
+    rows = -(-m // min(sms, m))
+    group = L * B + L * (B // gsize) if gsize else 0
+    return 4 * (B * (rows | 1) + L * rows + rows + L * B + group)
+
+
+def _k5_plan_invariants(p, B, m, L, sms=132):
+    """What csrc/sweep_batch.cu's plan_ok demands of every plan."""
+    LP = -(-L // 4) * 4
+    assert p.grid <= min(sms, m)
+    assert p.grid * p.rows >= m > (p.grid - 1) * p.rows
+    assert p.smem_bytes <= K5_MAX_SMEM_BYTES
+    assert 0 <= p.prefetch <= B and p.ld >= p.rows
+    if p.vec:
+        assert m % 4 == 0 and p.rows % 4 == 0 and p.ld % 8 == 4
+    else:
+        assert p.ld % 2 == 1
+    assert p.s1 == 1 or p.s1 * -(-B // 2) <= K5_THREADS
+    units2 = LP // 4 * (p.rows // 4 if p.vec else p.rows)
+    assert p.s2 == 1 or (p.s2 <= B and p.s2 * units2 <= K5_THREADS)
+    assert p.rw in (1, K5_THREADS // 32)
+
+
+@pytest.mark.parametrize("group", [False, True])
+@pytest.mark.parametrize("L", [1, 3, 10, 16])
+@pytest.mark.parametrize("m", [201, 5000, 10_000, 20_000])
+@pytest.mark.parametrize("B", [8, 80, 200])
+def test_k5_tiling_takes_every_shape_the_first_design_took(B, m, L, group):
+    gsize = B if group else 0
+    p = batch_sweep_tiling(B, m, L, gsize, 132)
+    if _first_k5_smem(B, m, L, gsize) <= K5_MAX_SMEM_BYTES:
+        assert p is not None
+    if p is not None:
+        _k5_plan_invariants(p, B, m, L)
+
+
+@pytest.mark.parametrize("B,L,ragged", [(400, 1, False), (400, 16, True),
+                                        (1000, 4, False), (1000, 10, True),
+                                        (2000, 4, False)])
+def test_k5_tiling_takes_the_first_designs_largest_tiles(B, L, ragged):
+    """At the edge of the old rule (the largest m it took at B and L) the
+    plan still fits, through the scalar unsplit layout if need be."""
+    gsize = 0 if ragged else 8
+    m = 4 * 132
+    while _first_k5_smem(B, m + 4 * 132, L, gsize) <= K5_MAX_SMEM_BYTES:
+        m += 4 * 132
+    while _first_k5_smem(B, m + 1, L, gsize) <= K5_MAX_SMEM_BYTES:
+        m += 1
+    m -= int(m % 4 == 0) if ragged else m % 4
+    assert _first_k5_smem(B, m, L, gsize) <= K5_MAX_SMEM_BYTES
+    p = batch_sweep_tiling(B, m, L, gsize, 132)
+    assert p is not None
+    _k5_plan_invariants(p, B, m, L)
+
+
+@pytest.mark.parametrize("B,m,L,gsize", [(80, 5000, L, 0)
+                                         for L in (1, 4, 10, 16)]
+                         + [(80, 10_000, 10, 0), (80, 5000, 10, 8)])
+def test_k5_tiling_double_buffers_config2_and_cv(B, m, L, gsize):
+    p = batch_sweep_tiling(B, m, L, gsize, 132)
+    assert p.vec and p.prefetch == B
+    assert p.s1 > 1 and p.s2 > 1
+    _k5_plan_invariants(p, B, m, L)
+
+
+def test_k5_tiling_prefetches_part_of_config4s_group_tile():
+    p = batch_sweep_tiling(200, 20_000, 10, 200, 132)
+    assert p.vec and p.rows == 152 and p.grid == 132
+    assert 0 < p.prefetch < 200
+    _k5_plan_invariants(p, 200, 20_000, 10)
+
+
+@pytest.mark.parametrize("m", [201, 5001, 10_003])
+def test_k5_tiling_takes_the_scalar_instance_at_ragged_m(m):
+    p = batch_sweep_tiling(80, m, 10, 0, 132)
+    assert not p.vec and p.ld % 2 == 1
+    _k5_plan_invariants(p, 80, m, 10)
 
 
 def test_jax_runs_on_cpu_here():

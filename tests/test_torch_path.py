@@ -313,6 +313,37 @@ def test_batched_path_matches_sequential(kind, ngroups):
     assert bat.sweeps >= int(bat.iters.max())
 
 
+@pytest.mark.parametrize("seed", [0, 1, 3, 5])
+def test_batched_path_certifies_converged_points_in_f64(seed):
+    """A weighted group_l2 path at tol 1e-6, the f32 floor: every point
+    the f32 monitor calls converged returns its f64 gap, at or under tol
+    (a claim that fails in f64 is polished).  At seeds 0, 1 and 3 the f32
+    reading alone returned points whose f64 gap passed 2 tol.
+    certify=False keeps that rule on the same loop: the same sweeps and
+    converged flags."""
+    cfg = SolverConfig(tol=1e-6, max_iters=4000, gap_every=10,
+                       stall_checks=20)
+    w = np.random.default_rng(5).uniform(0.5, 1.5, 32).astype(np.float32)
+    inst, _, _ = make_lasso_instance_host(seed, 128, 512,
+                                          penalty_kind="group_l2",
+                                          ngroups=32, device="cpu")
+    p = inst.problem.with_penalty(dataclasses.replace(
+        inst.problem.penalty, weights=torch.as_tensor(w)))
+    res = cot.lambda_path(p, cfg, path_len=6, method="bcd_batch")
+    raw = cot.batched_lambda_path(p, cfg, path_len=6, certify=False)
+    assert res.method_used == raw.method_used == "bcd_batch"
+    assert res.sweeps == raw.sweeps
+    assert bool((res.converged == raw.converged).all())
+    assert bool(res.converged.any())
+    for l, lam in enumerate(res.lambdas.tolist()):
+        if not bool(res.converged[l]):
+            continue
+        gap = float(cot.duality_gap(p.with_lam1(lam), res.xs[l],
+                                    precise=True).rel_gap)
+        assert gap <= cfg.tol, (l, gap)
+        assert abs(float(res.gaps[l]) - gap) <= 1e-3 * gap + 1e-12, l
+
+
 def test_batched_path_dense_grid_chunks():
     """Grids past MAX_BATCH run in warm-started chunks and stay
     certified."""
