@@ -14,7 +14,8 @@ non-zero without one.  Phases, each of which fails the run if it fails:
      A_t (B = 80, m = 10000), and on the full A_t (1250 blocks), where
      the kernel's and the plain version's times are taken with CUDA
      events (K2 and K3 launched twice, torch.equal, and one JSON line of
-     their times beside addmv and the bound); K1 runs with a partly-zero
+     their times beside addmv and the bound; one JSON line of K1's time,
+     us per block and launch plan); K1 runs with a partly-zero
      keep mask at the small and slice shapes and with the main path's
      all-ones mask at full size; then a
      200 x 800 solve + polish on the card against the same solve on the
@@ -72,8 +73,9 @@ non-zero without one.  Phases, each of which fails the run if it fails:
   9. K8 (the column-sharded slab sweep) against its plain version: at a
      small shape with weighted group_l2 and a partly-zero mask and with
      nonneg_l1, on a 64-block slice of rank 0's slab of the headline at
-     P = 2, and on that whole slab (625 x 80 x 10000), timed; x, r, and
-     the merge payload (dr and the three scalars) are compared;
+     P = 2, and on that whole slab (625 x 80 x 10000), timed beside K1 on
+     the same slab (its JSON line with us per block); x, r, and the merge
+     payload (dr and the three scalars) are compared;
   10. the column-sharded path, SHARD_P = 2 spawned ranks sharing the card
      over gloo (the headline A reaches them as shared memory): psum, pmax,
      the broadcast and the all-gather exact on CUDA tensors, the ring and
@@ -358,8 +360,26 @@ def compare_kernels(A_t, b, x_probe, keep, label: str, stats: dict,
                                               pen, 0.0), 2),
              None, sweep_work(m, n, nb)) if timed else ()
     record(stats, "sweep_t", max(ex, float((rk - rp).abs().max())), *times)
+    if timed:
+        st = stats["sweep_t"]
+        print(json.dumps({
+            "metric": f"k1_sweep_ms_{label}_A_t_{nb}x{B}x{m}",
+            "ms": st["ms"], "us_per_block": 1e3 * st["ms"] / nb,
+            "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+            "plan": k1_plan(A_t.device, B, m),
+            "gpu": card[0], "power_limit": card[1]}), flush=True)
     torch.cuda.synchronize()
     log(f"# kernels vs plain [{label}] A_t={tuple(A_t.shape)}: ok")
+
+
+def k1_plan(device, B: int, m: int) -> dict:
+    """K1's launch plan at (B, m), as a JSON line shows it."""
+    import dataclasses
+
+    from convex_optimization_tpu_torch.ops import bcd_sweep as k1
+
+    plan = k1.sweep_plan(device, B, m)
+    return dataclasses.asdict(plan) | {"smem_bytes": plan.smem_bytes}
 
 
 def compare_batch_matvecs(A_t, b, L: int, label: str, stats: dict, gen,
@@ -912,6 +932,9 @@ def compare_group_sweeps(A_rows, b, lam1: float, gsize: int, weights,
                 B=B, ms=time_ms(lambda: kernel(*args), 5),
                 plain_ms=time_ms(lambda: plain(*args), 1),
                 work=sweep_work(m, n, nb), max_abs_err=err, tol=tol)
+            out[name]["us_per_block"] = 1e3 * out[name]["ms"] / nb
+            if name == "sweep_t":
+                out[name]["plan"] = k1_plan(A_rows.device, B, m)
     torch.cuda.synchronize()
     log(f"# group sweeps vs plain [{label}] n={n} m={m}: ok {checked}")
     return out
@@ -1380,10 +1403,16 @@ def compare_slab(A_t, b, pen, keep, label: str, stats: dict,
     log(f"# K8 vs plain [{label}] slab={tuple(A_t.shape)} {pen.kind}: ok "
         f"(x err {ex:.3e}, payload {pk[m:].tolist()})")
     if timed:
-        # K1 on the same slab: the serial reduction against K8's split one
+        # K1 on the same slab
         k1_ms = time_ms(lambda: k1.sweep_t(*args), 5)
         log(f"# K8 {times[0]:.3f} ms, K1 {k1_ms:.3f} ms, plain "
             f"{times[1]:.3f} ms on the same slab {tuple(A_t.shape)}")
+        print(json.dumps({
+            "metric": f"k8_slab_sweep_ms_A_t_{nb}x{B}x{m}",
+            "ms": times[0], "us_per_block": 1e3 * times[0] / nb,
+            "k1_ms_same_slab": k1_ms, "plain_ms": times[1],
+            "bound_ms": stats["sweep_slab_t"]["bound_ms"],
+            "grid": k8.slab_grid(A_t.device, B, m)}), flush=True)
 
 
 def sharded_ranks_job(g, A_s, b_s, pens_s, A_shared, b_h, lam_h) -> dict:

@@ -1,6 +1,6 @@
-// Device helpers shared by the sweep kernels (K1 csrc/sweep.cu, K5
-// csrc/sweep_batch.cu, K8 csrc/sweep_slab.cu, K9 csrc/sweep_tiled.cu):
-// the proxes, a warp sum in a fixed order, and cp.async (K5, K9).
+// Device helpers shared by the sweep kernels (K1 and K8 csrc/sweep.cu, K5
+// csrc/sweep_batch.cu, K9 csrc/sweep_tiled.cu): the proxes and a warp sum
+// in a fixed order.
 #pragma once
 
 namespace {
@@ -22,29 +22,6 @@ __device__ __forceinline__ float warp_sum(float s) {
     s += __shfl_xor_sync(0xffffffffu, s, off);
   }
   return s;
-}
-
-// Copy V floats global -> shared without a register stop: V = 4 (16
-// bytes, both addresses 16-byte aligned; L2 only) or 1.
-template <int V>
-__device__ __forceinline__ void cp_async(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if constexpr (V == 4) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-                 "l"(src));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-                 "l"(src));
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 }  // namespace

@@ -51,6 +51,7 @@
 
 #include <cstdint>
 
+#include "pipeline.cuh"
 #include "prox.cuh"
 
 namespace cg = cooperative_groups;

@@ -108,9 +108,11 @@ def _compile(so: str) -> None:
 
 
 def _declare(lib) -> None:
-    lib.cot_sweep_grid.argtypes = [_I, _I, ctypes.POINTER(_I)]
+    lib.cot_sweep_check.argtypes = [_I, _I, _I, _I, _I, _I, _I, _I,
+                                    ctypes.POINTER(_I)]
     lib.cot_sweep_t.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
-                                _VP, _I, _I, _I, _I, _Fl, _Fl, _I, _I, _VP]
+                                _VP, _VP, _I, _I, _I, _I, _Fl, _Fl, _I, _I,
+                                _I, _I, _I, _I, _I, _I, _I, _I, _VP]
     lib.cot_sweep_tiled_plan.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
     lib.cot_sweep_tiled_t.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _VP,
                                       _VP, _VP, _I, _I, _I, _I, _Fl, _Fl,
@@ -138,7 +140,7 @@ def _declare(lib) -> None:
                                      _I, _VP]
     lib.cot_error_string.argtypes = [_I]
     lib.cot_error_string.restype = ctypes.c_char_p
-    for fn in (lib.cot_sweep_grid, lib.cot_sweep_t,
+    for fn in (lib.cot_sweep_check, lib.cot_sweep_t,
                lib.cot_sweep_slab_grid, lib.cot_sweep_slab_t,
                lib.cot_sweep_tiled_plan, lib.cot_sweep_tiled_t,
                lib.cot_matvec_occupancy, lib.cot_ax_minus_b_t,

@@ -6,13 +6,16 @@ wrapper and ``sweep_t_plain`` its plain PyTorch version, which runs for
 CPU tensors and is the kernel's oracle on the card.
 
 The TPU module's VMEM and 13 GiB HBM gates do not carry over: the H100's
-limit is the kernel's shared-memory tile (B x ceil(m / SMs) floats), which
-the C side checks.  ``sweep_route`` states that limit as a pure function;
-blocks past it go to K9 (``ops/bcd_sweep_tiled.py``).
+limit is the kernel's shared-memory tile (B x ceil(m / SMs) floats).
+``sweep_route`` states that limit as a pure function (the first design's
+layout, which the launch plan ``sweep_tiling`` always falls back to); blocks
+past it go to K9 (``ops/bcd_sweep_tiled.py``).
 """
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
 import math
 
 import torch
@@ -20,6 +23,7 @@ import torch
 from convex_optimization_tpu_torch.models.penalties import Penalty
 from convex_optimization_tpu_torch.ops import _build
 from convex_optimization_tpu_torch.ops.bcd_sweep_ref import sweep_blocks
+from convex_optimization_tpu_torch.ops.matvec import _aligned
 
 KIND_CODE = {"l1": 0, "nonneg_l1": 1, "group_l2": 2}
 
@@ -27,9 +31,13 @@ KIND_CODE = {"l1": 0, "nonneg_l1": 1, "group_l2": 2}
 MAX_SMEM_BYTES = 227 * 1024
 #: SMs of an H100 SXM: how a CPU problem routes its blocks (``sweep_route``)
 H100_SMS = 132
+#: K1's threads per CTA (csrc/sweep.cu kThreads) and the most
+#: segments a phase is split into
+K1_THREADS = 384
+K1_MAX_SEGMENTS = 8
 
-#: (device index, B, m) -> cooperative grid size
-_grid_cache: dict = {}
+#: (device index, B, m) -> K1's SweepPlan, None when no fit
+_plan_cache: dict = {}
 
 
 def pick_block_size_t(n: int, target: int = 128,
@@ -59,11 +67,91 @@ def to_tblock_major(A: torch.Tensor, n_blocks: int) -> torch.Tensor:
 
 
 def k1_smem_bytes(B: int, m: int, sms: int) -> int:
-    """Shared memory of one K1 CTA at (B, m) on a card with ``sms`` SMs, as
-    csrc/sweep.cu computes it: the (B x rows) tile, the CTA's rows of r,
-    dx, x_j and the group scales (B each)."""
+    """K1's fit rule: the shared memory of one CTA of K1's first design at
+    (B, m) on a card with ``sms`` SMs: the (B x rows) tile, the CTA's rows
+    of r, dx, x_j and the group scales (B each).  The launch plan's last
+    resort (``sweep_tiling``) needs no more, so the rule routes as it
+    did."""
     rows = -(-m // min(sms, m))
     return 4 * (B * rows + rows + 3 * B)
+
+
+def up4(v: int, vec: bool) -> int:
+    """v rounded up to a multiple of 4 for the float4 instances."""
+    return -(-v // 4) * 4 if vec else v
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepPlan:
+    """K1's launch at one (B, m): ``grid`` CTAs of ``rows`` rows each;
+    tile rows of stride ``ld`` floats in shared memory; ``vec``: the float4 instance (m % 4 == 0, rows % 4 == 0, ld % 8 == 4),
+    whose copies are 16 bytes when A_t is 16-byte aligned; ``prefetch``:
+    the b-rows of tile j + 1 in flight across block j's barriers (B: a
+    double buffer); ``s1``, ``s2``: the segments phase 1 and phase 2 are
+    split into; ``rw``: the warps that split each reduced coordinate's G
+    partials (all 12, or 1 with no shared scratch).  The group scales'
+    region holds B floats, enough for every group width that divides B."""
+    B: int
+    grid: int
+    rows: int
+    ld: int
+    vec: bool
+    prefetch: int
+    s1: int
+    s2: int
+    rw: int
+
+    @property
+    def smem_bytes(self) -> int:
+        """Shared memory of the layout (csrc/sweep.cu ``layout``)."""
+        B, rows, vec = self.B, self.rows, self.vec
+        red = max((self.s1 - 1) * 2 * -(-B // 2), (self.s2 - 1) * rows)
+        floats = ((B + self.prefetch) * self.ld + up4(rows, vec)
+                  + up4(B, vec) + up4(B, vec)    # dx, group scales
+                  + up4(red, vec)
+                  + (32 * self.rw if self.rw > 1 else 0))
+        return 4 * floats
+
+
+def sweep_tiling(B: int, m: int, sms: int,
+                 smem_limit: int = MAX_SMEM_BYTES) -> SweepPlan | None:
+    """The pure part of ``sweep_plan``: K1's plan on a card of ``sms`` SMs
+    with ``smem_limit`` bytes of shared memory per CTA, or None when even
+    the plainest layout does not fit.
+
+    One CTA per SM (at most m), rows = ceil(m / grid); the float4 instance
+    (when m % 4 == 0) rounds rows up to 4 and pads ld to 4 mod 8, else ld
+    is odd (both keep phase 1's tile reads conflict-free).  Phase 1 (units
+    of two tile rows) and phase 2 (units of 4 rows, or 1) split into
+    segments up to K1_THREADS threads, at most K1_MAX_SEGMENTS, and the
+    reduction's 12 warps share a (12, 32) scratch, or 1 and 1 warp where
+    that scratch does not fit.  The spare shared memory then holds
+    ``prefetch`` b-rows of the next tile, up to B.  The last resort
+    (scalar, unsplit, ld = rows) takes no more shared memory than the first
+    design's layout (``k1_smem_bytes``), so every (B, m) that
+    ``sweep_route`` sends to K1 gets a plan."""
+    G0 = min(sms, m)
+    rows0 = -(-m // G0)
+    cands = []
+    for vec in ((True, False) if m % 4 == 0 else (False,)):
+        rows = up4(rows0, vec)
+        if vec:
+            ld = rows if rows % 8 == 4 else rows + 4
+        else:
+            ld = rows | 1
+        s1 = max(1, min(K1_MAX_SEGMENTS, K1_THREADS // -(-B // 2)))
+        s2 = max(1, min(K1_MAX_SEGMENTS,
+                        K1_THREADS // (rows // 4 if vec else rows), B))
+        cands += [(vec, rows, ld, s1, s2, K1_THREADS // 32),
+                  (vec, rows, ld, 1, 1, 1)]
+    cands.append((False, rows0, rows0, 1, 1, 1))   # the first design's
+    for vec, rows, ld, s1, s2, w in cands:
+        plan = SweepPlan(B, -(-m // rows), rows, ld, vec, 0, s1, s2, w)
+        spare = smem_limit - plan.smem_bytes
+        if spare >= 0:
+            return dataclasses.replace(
+                plan, prefetch=min(B, spare // (4 * ld)))
+    return None
 
 
 def sweep_route(B: int, m: int, sms: int,
@@ -122,22 +210,37 @@ def _check_operands(A_t, x, r, steps, keep_mask) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def sweep_grid(device: torch.device, B: int, m: int) -> int:
-    """Cooperative grid size of K1 at (B, m) on ``device``."""
+def sweep_plan(device: torch.device, B: int, m: int) -> SweepPlan:
+    """K1's plan at (B, m) on ``device``: the SM count
+    from torch, the tiling from ``sweep_tiling``, checked on the C side
+    (``cot_sweep_check``: the same shared-memory bytes, and one CTA per SM
+    co-resident for the cooperative launch).  Raises when the tile does not
+    fit in shared memory (K9 takes those blocks, ``sweep_route``)."""
     key = (device.index, B, m)
-    if key not in _grid_cache:
-        import ctypes
-
-        lib = _build.load()
-        g = ctypes.c_int(0)
-        with torch.cuda.device(device):
-            _build.check(lib.cot_sweep_grid(B, m, ctypes.byref(g)),
-                         "cot_sweep_grid")
-        if g.value == 0:
-            raise ValueError(f"sweep tile of B={B} x m={m} does not fit "
-                             "in shared memory")
-        _grid_cache[key] = g.value
-    return _grid_cache[key]
+    if key not in _plan_cache:
+        props = torch.cuda.get_device_properties(device)
+        limit = min(MAX_SMEM_BYTES,
+                    getattr(props, "shared_memory_per_block_optin",
+                            MAX_SMEM_BYTES))
+        plan = sweep_tiling(B, m, props.multi_processor_count, limit)
+        if plan is not None:
+            out = (ctypes.c_int * 2)()
+            with torch.cuda.device(device):
+                _build.check(_build.load().cot_sweep_check(
+                    B, plan.rows, plan.ld, plan.prefetch, plan.s1, plan.s2,
+                    plan.rw, int(plan.vec), out),
+                    "cot_sweep_check")
+            if out[0] != plan.smem_bytes:
+                raise RuntimeError(f"K1 layout: C side {out[0]} bytes, "
+                                   f"plan {plan.smem_bytes}")
+            if out[1] < 1:
+                raise RuntimeError(f"K1 plan {plan} fits no SM")
+        _plan_cache[key] = plan
+    plan = _plan_cache[key]
+    if plan is None:
+        raise ValueError(f"sweep tile of B={B} x m={m} does not fit in "
+                         "shared memory")
+    return plan
 
 
 def sweep_t(A_t: torch.Tensor, x: torch.Tensor, r: torch.Tensor,
@@ -160,20 +263,26 @@ def sweep_t(A_t: torch.Tensor, x: torch.Tensor, r: torch.Tensor,
         raise ValueError(f"unknown penalty kind {penalty.kind!r}")
     _check_operands(A_t, x, r, steps, keep_mask)
     nb, B, m = A_t.shape
-    gsize, w = group_operands(penalty, nb * B, B, A_t.device)
-    grid = sweep_grid(A_t.device, B, m)
+    dev = A_t.device
+    gsize, w = group_operands(penalty, nb * B, B, dev)
+    plan = sweep_plan(dev, B, m)
+    # the tile's copies: 16-byte cp.async (the float4 instance on an
+    # aligned A_t), else 4-byte cp.async
+    copy = 1 if plan.vec and _aligned(A_t) else 0
     x_out = torch.empty_like(x)
     r_out = torch.empty_like(r)
-    partials = torch.empty((2 * grid * B,), dtype=torch.float32,
-                           device=A_t.device)
-    lib = _build.load()
-    err = lib.cot_sweep_t(
+    partials = torch.empty(((plan.grid + 1) * B,), dtype=torch.float32,
+                           device=dev)
+    bar = torch.zeros((1,), dtype=torch.int32, device=dev)  # grid barrier
+    err = _build.load().cot_sweep_t(
         A_t.data_ptr(), x.data_ptr(), r.data_ptr(), steps.data_ptr(),
         None if keep_mask is None else keep_mask.data_ptr(),
         None if w is None else w.data_ptr(),
         x_out.data_ptr(), r_out.data_ptr(), partials.data_ptr(),
-        nb, B, m, gsize, float(penalty.lam1), float(lam2),
-        KIND_CODE[penalty.kind], grid, _build.stream_ptr(A_t.device))
+        bar.data_ptr(), nb, B, m, gsize, float(penalty.lam1), float(lam2),
+        KIND_CODE[penalty.kind], plan.grid, plan.rows, plan.ld,
+        plan.prefetch, plan.s1, plan.s2, plan.rw, int(plan.vec), copy,
+        _build.stream_ptr(dev))
     _build.check(err, "sweep_t")
     _build.launches["sweep_t"] += 1
     return x_out, r_out

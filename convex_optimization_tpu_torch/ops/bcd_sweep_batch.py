@@ -35,6 +35,7 @@ from convex_optimization_tpu_torch.ops import _build
 from convex_optimization_tpu_torch.ops.bcd_sweep import (
     KIND_CODE,
     group_operands,
+    up4,
 )
 from convex_optimization_tpu_torch.ops.matvec import (
     _aligned,
@@ -142,10 +143,6 @@ def batch_sweep_t_plain(A_t: torch.Tensor, X: torch.Tensor, R: torch.Tensor,
     return X, R
 
 
-def _up4(v: int, vec: bool) -> int:
-    return -(-v // 4) * 4 if vec else v
-
-
 @dataclasses.dataclass(frozen=True)
 class BatchSweepPlan:
     """K5's launch at one (B, m, L, gsize): ``grid`` CTAs of ``rows`` rows
@@ -177,15 +174,15 @@ class BatchSweepPlan:
         LP = -(-L // 4) * 4
         red = max((self.s1 - 1) * 2 * LP * -(-B // 2),
                   (self.s2 - 1) * LP * rows)
-        floats = ((B + self.prefetch) * self.ld + _up4(L * rows, vec)
-                  + _up4(rows, vec) + _up4(B * (LP if vec else L), vec)
-                  + _up4(red, vec))
+        floats = ((B + self.prefetch) * self.ld + up4(L * rows, vec)
+                  + up4(rows, vec) + up4(B * (LP if vec else L), vec)
+                  + up4(red, vec))
         if self.rw > 1:
             floats += 32 * self.rw
         if self.gsize:
             floats += L * B + L * (B // self.gsize)
         if vec:                           # two mbarriers for the bulk copies
-            floats = _up4(floats, vec) + 4
+            floats = up4(floats, vec) + 4
         return 4 * floats
 
 

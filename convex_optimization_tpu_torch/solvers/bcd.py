@@ -21,7 +21,7 @@ from convex_optimization_tpu_torch.ops import _build
 from convex_optimization_tpu_torch.ops.bcd_sweep import (
     H100_SMS,
     block_steps,
-    sweep_grid,
+    sweep_plan,
     sweep_route,
     sweep_t,
 )
@@ -82,7 +82,7 @@ def prepare_sweep(A_t: torch.Tensor) -> None:
     _build.load()
     nb, B, m = A_t.shape
     if pick_sweep(A_t.device, B, m) is sweep_t:
-        sweep_grid(A_t.device, B, m)
+        sweep_plan(A_t.device, B, m)
     else:
         tiled_plan(A_t.device, B, m, copy_width(A_t))
 

@@ -1,0 +1,111 @@
+#!/usr/bin/env python3
+"""Write a copy of the port with one design choice of K1 (`csrc/sweep.cu`
+and its plan, `ops/bcd_sweep.py`) swapped for another, so
+that `scripts/time_sweep.py --root DEST` and `scripts/sharded_counts.py
+--root DEST` measure it beside the shipped kernel in one chip call.
+
+    python3 scripts/sweep_variant.py NAME DEST
+
+Variants (NAME):
+  grid_sync        the grid barriers as cooperative groups' grid.sync() in
+                   place of the integer arrival counter (`counter_barrier`)
+  pairwise_reduce  the split reduce's sums (16 partials per load batch,
+                   then the warps' sums) as pairwise trees in place of
+                   running sums
+  no_prefetch      no b-row of tile j + 1 in flight across block j's
+                   barriers (P = 0: the whole tile loads after phase 2)
+  copies_4_byte    4-byte cp.async for the tile in place of 16-byte
+  phases_unsplit   phases 1 and 2 in one segment each (S1 = S2 = 1)
+  reduce_one_warp  one warp sums each reduced coordinate's G partials
+  rows_16, rows_32, rows_64
+                   at least that many rows per CTA (fewer CTAs at small m)
+
+DEST (e.g. build/variant_grid_sync) receives this checkout's
+`convex_optimization_tpu_torch/` with the variant's text replacements;
+each replaced text must occur exactly once in its file.  The copy builds
+its own kernel library under DEST/build/ at first use.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = "convex_optimization_tpu_torch"
+CU = "csrc/sweep.cu"
+PLAN = "ops/bcd_sweep.py"
+
+#: name -> [(file in the package, text, its replacement)]
+VARIANTS = {
+    "grid_sync": [
+        (CU, '#include "pipeline.cuh"\n',
+         '#include <cooperative_groups.h>\n\n#include "pipeline.cuh"\n'),
+        (CU, "    arrivals += gridDim.x;\n    counter_barrier(bar, arrivals);\n",
+         "    (void)bar;\n    cooperative_groups::this_grid().sync();\n"),
+    ],
+    "pairwise_reduce": [
+        (CU, "          for (int u = 0; u < 16; ++u) g += v[u];\n",
+         "          for (int h = 8; h >= 1; h >>= 1) {\n"
+         "#pragma unroll\n"
+         "            for (int u = 0; u < h; ++u) v[u] += v[u + h];\n"
+         "          }\n"
+         "          g += v[0];\n"),
+        (CU, "          g = 0.0f;\n"
+         "          for (int w2 = 0; w2 < RW; ++w2) g += gs_s[w2 * 32 + lane];\n",
+         "          float u16[16];\n"
+         "#pragma unroll\n"
+         "          for (int w2 = 0; w2 < 16; ++w2) {\n"
+         "            u16[w2] = w2 < RW ? gs_s[w2 * 32 + lane] : 0.0f;\n"
+         "          }\n"
+         "#pragma unroll\n"
+         "          for (int h = 8; h >= 1; h >>= 1) {\n"
+         "#pragma unroll\n"
+         "            for (int u = 0; u < h; ++u) u16[u] += u16[u + h];\n"
+         "          }\n"
+         "          g = u16[0];\n"),
+    ],
+    "no_prefetch": [
+        (PLAN, "plan, prefetch=min(B, spare // (4 * ld)))",
+         "plan, prefetch=0)"),
+    ],
+    "copies_4_byte": [
+        (PLAN, "copy = 1 if plan.vec and _aligned(A_t) else 0", "copy = 0"),
+    ],
+    "phases_unsplit": [
+        (PLAN, "cands += [(vec, rows, ld, s1, s2, K1_THREADS // 32),",
+         "cands += [(vec, rows, ld, 1, 1, K1_THREADS // 32),"),
+    ],
+    "reduce_one_warp": [
+        (PLAN, "cands += [(vec, rows, ld, s1, s2, K1_THREADS // 32),",
+         "cands += [(vec, rows, ld, s1, s2, 1),"),
+    ],
+    **{f"rows_{k}": [(PLAN, "G0 = min(sms, m)", f"G0 = min(sms, -(-m // {k}))")]
+       for k in (16, 32, 64)},
+}
+
+
+def main() -> None:
+    if len(sys.argv) != 3 or sys.argv[1] not in VARIANTS:
+        raise SystemExit(f"usage: sweep_variant.py {{{','.join(VARIANTS)}}} "
+                         "DEST")
+    name, dest = sys.argv[1], os.path.abspath(sys.argv[2])
+    if os.path.exists(dest):
+        shutil.rmtree(dest)
+    shutil.copytree(os.path.join(HERE, PKG), os.path.join(dest, PKG),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    for rel, old, new in VARIANTS[name]:
+        path = os.path.join(dest, PKG, rel)
+        with open(path) as f:
+            src = f.read()
+        if src.count(old) != 1:
+            raise SystemExit(f"{name}: {old!r} occurs {src.count(old)} "
+                             f"times in {rel}")
+        with open(path, "w") as f:
+            f.write(src.replace(old, new))
+    print(f"{name} -> {dest}")
+
+
+if __name__ == "__main__":
+    main()

@@ -12,7 +12,8 @@ terms in another order),
 1e-4 for the 48-iteration power estimate (K4); K3 to its stated rounding
 bound witness_gamma(m) ||A_j|| ||r|| per column, on which the f64 polish's
 certificate rests.  K2 and K3 give the same bits on two launches, and on
-unaligned or slab views as on aligned copies (torch.equal).  K5 with a 0/1
+unaligned or slab views as on aligned copies (torch.equal); K1 and K8
+give the same bits on two launches and on unaligned views.  K5 with a 0/1
 row mask equals K5 on a masked copy of A bit for bit (torch.equal), with
 every penalty; K5, K6 and K7 give the same bits on two launches, and K5 on
 an unaligned A_t view the bits of the aligned copy (torch.equal).
@@ -247,6 +248,79 @@ def test_tiled_sweep_kernel_matches_plain(cuda, m, n, B, kind):
     mask = torch.rand(n, generator=torch.Generator().manual_seed(2)) > 0.05
     _one_sweep(sweep_tiled_t, sweep_tiled_t_plain, p, x, pen, mask.to(cuda))
     _one_sweep(sweep_tiled_t, sweep_tiled_t_plain, p, x, pen, None)
+
+
+def _sweep_inputs(p, x, kind, cuda, seed=1):
+    """(penalty, x, r = A x - b, steps, a partly-zero keep mask) for one
+    K1 / K8 sweep at ``kind``."""
+    nb, B, m = p.A_t.shape
+    pen = (_group_penalty(nb * B, B, cuda) if kind == "group_l2"
+           else Penalty(lam1=0.05, kind=kind))
+    if kind == "nonneg_l1":
+        x = x.abs()
+    r = ax_minus_b_t_plain(p.A_t, x, p.b)
+    steps = block_steps(block_power_t_plain(p.A_t), p.lam2, 0.5)
+    mask = torch.rand(nb * B, generator=torch.Generator().manual_seed(seed))
+    return pen, x, r, steps, (mask > 0.05).to(cuda)
+
+
+@pytest.mark.parametrize("kind", ["l1", "group_l2"])
+@pytest.mark.parametrize("m,n,B", SHAPES)
+def test_sweep_kernel_is_deterministic(cuda, m, n, B, kind):
+    """No float atomics, a fixed summation order: two launches of K1, and
+    of K8, on the same inputs give the same bits."""
+    p, x = _data(m, n, B, cuda)
+    pen, x, r, steps, mask = _sweep_inputs(p, x, kind, cuda)
+    for keep in (mask, None):
+        args = (p.A_t, x, r, steps, keep, pen, p.lam2)
+        x1, r1 = sweep_t(*args)
+        x2, r2 = sweep_t(*args)
+        assert torch.equal(x1, x2) and torch.equal(r1, r2)
+        out1, out2 = sweep_slab_t(*args), sweep_slab_t(*args)
+        assert all(torch.equal(a, b) for a, b in zip(out1, out2))
+
+
+@pytest.mark.parametrize("kind", ["l1", "group_l2"])
+@pytest.mark.parametrize("m,n,B", [(256, 1024, 32), (10_000, 80 * 16, 80),
+                                   (20_000, 200 * 2, 200)])
+def test_sweep_kernel_on_an_unaligned_view(cuda, m, n, B, kind):
+    """A contiguous A_t view 4 bytes past a 16-byte boundary takes the
+    4-byte copies (the aligned copy: 16-byte ones) and gives the bits of
+    the aligned copy, in K1 and K8; at m = 20 000 with a partial
+    prefetch."""
+    p, x = _data(m, n, B, cuda)
+    pen, x, r, steps, mask = _sweep_inputs(p, x, kind, cuda)
+    buf = torch.empty(p.A_t.numel() + 1, device=cuda)
+    A_u = buf[1:].view(p.A_t.shape)
+    A_u.copy_(p.A_t)
+    assert A_u.is_contiguous() and A_u.data_ptr() % 16 != 0
+    for sweep in (sweep_t, sweep_slab_t):
+        out_u = sweep(A_u, x, r, steps, mask, pen, p.lam2)
+        out_a = sweep(p.A_t, x, r, steps, mask, pen, p.lam2)
+        assert all(torch.equal(a, b) for a, b in zip(out_u, out_a))
+
+
+@pytest.mark.parametrize("kind", ["l1", "group_l2"])
+def test_sweep_kernel_at_config4_group_widths(cuda, kind):
+    """Config 4's K1 tile (B = 200, m = 20 000), whose plan prefetches only
+    part of the next tile, against the plain version over 6 blocks, masked
+    and not; group_l2 over groups of 200 with weights."""
+    from convex_optimization_tpu_torch.ops.bcd_sweep import sweep_plan
+
+    m, B = 20_000, 200
+    p, x = _data(m, 6 * B, B, cuda)
+    plan = sweep_plan(cuda, B, m)
+    assert 0 < plan.prefetch < B
+    if kind == "group_l2":
+        w = np.random.default_rng(5).uniform(0.5, 1.5, 6)
+        pen = Penalty(lam1=0.05, kind="group_l2", ngroups=6,
+                      weights=torch.as_tensor(w, dtype=torch.float32,
+                                              device=cuda))
+    else:
+        pen = Penalty(lam1=0.05, kind="l1")
+    mask = torch.rand(6 * B, generator=torch.Generator().manual_seed(3))
+    for keep in ((mask > 0.05).to(cuda), None):
+        _one_sweep(sweep_t, sweep_t_plain, p, x, pen, keep)
 
 
 def test_k1_refuses_the_tile_k9_takes(cuda):

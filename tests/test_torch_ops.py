@@ -36,11 +36,13 @@ from convex_optimization_tpu_torch.core.problem import problem_from_numpy
 from convex_optimization_tpu_torch.ops import _build
 from convex_optimization_tpu_torch.ops.bcd_sweep import (
     H100_SMS,
+    K1_THREADS,
     MAX_SMEM_BYTES,
     block_steps,
     k1_smem_bytes,
     sweep_route,
     sweep_t,
+    sweep_tiling,
     to_tblock_major,
 )
 from convex_optimization_tpu_torch.ops.bcd_sweep_batch import (
@@ -425,6 +427,86 @@ def test_k5_tiling_takes_the_scalar_instance_at_ragged_m(m):
     _k5_plan_invariants(p, 80, m, 10)
 
 
+def _k1_plan_invariants(p, B, m, sms=132):
+    """What csrc/sweep.cu's plan_ok demands of every K1 / K8 plan."""
+    assert p.grid <= min(sms, m)
+    assert p.grid * p.rows >= m > (p.grid - 1) * p.rows
+    assert p.smem_bytes <= MAX_SMEM_BYTES
+    assert 0 <= p.prefetch <= B and p.ld >= p.rows
+    if p.vec:
+        assert m % 4 == 0 and p.rows % 4 == 0 and p.ld % 8 == 4
+    assert p.s1 == 1 or p.s1 * -(-B // 2) <= K1_THREADS
+    q = p.rows // 4 if p.vec else p.rows
+    assert p.s2 == 1 or (p.s2 <= B and p.s2 * q <= K1_THREADS)
+    assert p.rw in (1, K1_THREADS // 32)
+
+
+@pytest.mark.parametrize("sms", [H100_SMS, 114])
+@pytest.mark.parametrize("m", [201, 5000, 10_000, 20_000, 100_000])
+@pytest.mark.parametrize("B", [8, 32, 80, 200, 400, 2000])
+def test_k1_tiling_takes_every_shape_the_first_design_took(B, m, sms):
+    """Every (B, m) that sweep_route sends to K1 (the first design's fit
+    rule, unchanged) gets a plan that fits, on the H100 SXM's 132 SMs and
+    the PCIe card's 114: no block moves between K1 and K9."""
+    p = sweep_tiling(B, m, sms)
+    if sweep_route(B, m, sms) == "k1":
+        assert p is not None
+    if p is not None:
+        _k1_plan_invariants(p, B, m, sms)
+
+
+@pytest.mark.parametrize("B,ragged", [(80, False), (200, True),
+                                      (400, False), (1000, True)])
+def test_k1_tiling_takes_the_first_designs_largest_tiles(B, ragged):
+    """At the edge of the fit rule (the largest m it sends to K1 at B) the
+    plan still fits, through the first design's layout if need be; one row
+    more goes to K9."""
+    m = 132
+    while k1_smem_bytes(B, m + 132, H100_SMS) <= MAX_SMEM_BYTES:
+        m += 132
+    while k1_smem_bytes(B, m + 1, H100_SMS) <= MAX_SMEM_BYTES:
+        m += 1
+    assert sweep_route(B, m + 1, H100_SMS) == "k9"
+    m -= int(m % 4 == 0) if ragged else m % 4
+    assert sweep_route(B, m, H100_SMS) == "k1"
+    p = sweep_tiling(B, m, H100_SMS)
+    assert p is not None
+    _k1_plan_invariants(p, B, m)
+
+
+@pytest.mark.parametrize("name,B,m", [("headline", 80, 10_000),
+                                      ("config3", 80, 10_000),
+                                      ("rank_slab", 80, 10_000),
+                                      ("config2", 80, 5000)])
+def test_k1_tiling_double_buffers_the_headline_and_the_rank_slab(name, B, m):
+    """The headline's and config 3's A_t (1250 x 80 x 10 000) and a rank's
+    slab of it (625 x 80 x 10 000) share K1's tile: two of them fit, so the
+    plan is a whole double buffer, the float4 instance, both phases
+    split."""
+    p = sweep_tiling(B, m, H100_SMS)
+    assert p.vec and p.prefetch == B
+    assert p.s1 > 1 and p.s2 > 1
+    if m == 10_000:
+        assert p.rows == 76 and p.grid == 132
+    _k1_plan_invariants(p, B, m)
+
+
+def test_k1_tiling_prefetches_part_of_config4s_group_tile():
+    """Config 4's K1 route (B = 200, m = 20 000, groups of 200): one tile
+    is 122 KB, so only part of the next fits beside it."""
+    p = sweep_tiling(200, 20_000, H100_SMS)
+    assert p.vec and p.rows == 152 and p.grid == 132
+    assert 0 < p.prefetch < 200
+    _k1_plan_invariants(p, 200, 20_000)
+
+
+@pytest.mark.parametrize("m", [201, 5001, 10_003])
+def test_k1_tiling_takes_the_scalar_instance_at_ragged_m(m):
+    p = sweep_tiling(80, m, H100_SMS)
+    assert not p.vec and p.ld % 2 == 1
+    _k1_plan_invariants(p, 80, m)
+
+
 def test_jax_runs_on_cpu_here():
     # the JAX references above ran on the CPU backend (interpret mode)
     assert jax.default_backend() == "cpu"
@@ -464,8 +546,9 @@ def test_ctypes_declarations_match_the_c_entry_points():
     found = _c_params(_build.sources(), re.compile(
         r"^(?:int|const char\*) (cot_\w+)\(([^)]*)\)\s*\{", re.M))
     assert len(found) >= 14
-    assert {"cot_sweep_t", "cot_sweep_tiled_plan", "cot_sweep_tiled_t",
-            "cot_sweep_slab_grid", "cot_sweep_slab_t"} <= set(found)
+    assert {"cot_sweep_t", "cot_sweep_check", "cot_sweep_tiled_plan",
+            "cot_sweep_tiled_t", "cot_sweep_slab_grid",
+            "cot_sweep_slab_t"} <= set(found)
     for name, n_params in found.items():
         assert len(getattr(lib, name).argtypes) == n_params, name
 
