@@ -70,23 +70,29 @@ non-zero without one.  Phases, each of which fails the run if it fails:
      (bcd_batch: K5's group prox, K6, K7) down to 0.1 lam_max, K5 launched
      once per sweep, every point's f64 rel_gap <= 1e-4, the last point
      polished to <= 1e-6;
-  9. K8 (the column-sharded slab sweep) against its plain version: at a
-     small shape with weighted group_l2 and a partly-zero mask and with
-     nonneg_l1, on a 64-block slice of rank 0's slab of the headline at
-     P = 2, and on that whole slab (625 x 80 x 10000), timed beside K1 on
-     the same slab (its JSON line with us per block); x, r, and the merge
-     payload (dr and the three scalars) are compared;
+  9. K8 (the column-sharded slab sweep, K1's payload instance) against
+     its plain version: at a small shape with weighted group_l2 and a
+     partly-zero mask and with nonneg_l1, on a 64-block slice of rank 0's
+     slab of the headline at P = 2, and on that whole slab (625 x 80 x
+     10000), timed beside K1 on the same slab (its JSON line with us per
+     block); x, r, and the merge payload (dr and the three scalars) are
+     compared, and K8's x and r must equal K1's bit for bit;
   10. the column-sharded path, SHARD_P = 2 spawned ranks sharing the card
      over gloo (the headline A reaches them as shared memory): psum, pmax,
      the broadcast and the all-gather exact on CUDA tensors, the ring and
      the reduce-scatter refused by the port on every rank with its own
      error; a 500 x 2000 sharded BCD and FISTA (l1) and BCD (weighted
      group_l2, 40 groups) on the card with psum and on the CPU in every
-     mode (steps within one check, each certified after the polish,
-     supports equal); the headline, solve(bcd_pallas, mesh=group,
-     tol=1e-6, max_iters=20000, gap_every=10, stall_checks=15,
-     block_size=128), x gathered and polished here to an f64 rel_gap <=
-     1e-6, K8 launched in every rank and K1 in none; then a world-size-1
+     mode, each certified after the polish with supports equal, and each
+     card run held to the CPU run of the same input by path_check (the
+     same primal path and rel_gap readings, the same crossings of 10 to
+     10^4 x tol within one check, the last decade within two checks, a
+     converged stop whose f64 gap before the polish is within 2 tol or
+     twice the CPU's); the headline,
+     solve(bcd_pallas, mesh=group, tol=1e-6, max_iters=20000,
+     gap_every=10, stall_checks=15, block_size=128), x gathered and
+     polished here to an f64 rel_gap <= 1e-6, K8 launched in every rank
+     and K1 in none; then a world-size-1
      NCCL group against the single-device solve, and a 2000 x 10000
      single-device FISTA on the card against the CPU;
   11. config 3 (nonneg elastic net, lam2 1e-3, 10k x 100k): solve(
@@ -145,6 +151,23 @@ SHARD_BCD = dict(tol=1e-6, max_iters=20_000, gap_every=10, stall_checks=15,
                  block_size=128)
 SHARD_FISTA = dict(tol=1e-5, max_iters=20_000, gap_every=10,
                    stall_checks=15)
+# path_check: a small card run against the CPU run of the same input.  The
+# primal objectives at every check agree to PATH_RTOL (one-ulp changes of
+# b move them by 2e-7 on the CPU), and the f32 rel_gap readings, while the
+# CPU's is >= PATH_LEVELS[0] x tol, to a factor of PATH_GAP_FACTOR; the
+# first check at which the f32 rel_gap reaches each of PATH_LEVELS x tol
+# is the CPU's to within one check; the checks from the first reading <=
+# PATH_LEVELS[0] x tol to the stop (the last decade) are the CPU's to
+# within PATH_LAST_DECADE.  The f32 reading is quantised at ~7e-8, so a
+# crossing at tol itself is decided by rounding: one-ulp changes of b
+# move the group_l2 run's last decade between 5 and 7 checks on the CPU
+# and on the card (scripts/sharded_counts.py), and rounding-only changes
+# of the sweep move the readings above 10 tol by up to 1.3x
+# (tests/test_torch_path_check.py)
+PATH_RTOL = 1e-5
+PATH_GAP_FACTOR = 2.0
+PATH_LEVELS = (10, 100, 1000, 10_000)
+PATH_LAST_DECADE = 2
 FISTA_MID = (2, 2000, 10_000)                          # seed, m, n
 # the H100 SXM's published peaks (NVIDIA data sheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
@@ -169,7 +192,7 @@ KERNELS = {
     "sweep_tiled_t": (
         "convex_optimization_tpu_torch/csrc/sweep_tiled.cu",
         "convex_optimization_tpu/ops/bcd_sweep_pallas_tiled.py:94"),
-    "sweep_slab_t": ("convex_optimization_tpu_torch/csrc/sweep_slab.cu",
+    "sweep_slab_t": ("convex_optimization_tpu_torch/csrc/sweep.cu",
                      "convex_optimization_tpu/ops/bcd_sweep_pallas.py:126"),
 }
 MAIN_KERNELS = ("sweep_t", "ax_minus_b_t", "neg_at_r_t", "block_power_t")
@@ -1356,10 +1379,12 @@ def compare_slab(A_t, b, pen, keep, label: str, stats: dict,
                  timed: bool) -> None:
     """K8 against its plain version on one slab A_t: the sweep from the
     plain version's first sweep (x = 0, r = -b), so that x . dx is not
-    0.  Tolerances: x, r and the payload's dr as K1 (1e-5, 1e-4 past 64
-    blocks; r and dr relative to ||r||); the payload's three scalars
-    against the merge's expressions on K8's own x and r to 1e-4 of their
-    magnitude sums (sums of n terms in another order)."""
+    0.  K8's x and r must be K1's on the same slab bit for bit (K8 is K1's
+    payload instance on K1's plan).  Tolerances: x, r and the payload's
+    dr as K1 (1e-5, 1e-4 past 64 blocks; r and dr relative to ||r||); the
+    payload's three scalars against the merge's expressions on K8's own x
+    and r to 1e-4 of their magnitude sums (sums of n terms in another
+    order)."""
     import torch
 
     from convex_optimization_tpu_torch.ops import bcd_sweep as k1
@@ -1373,6 +1398,10 @@ def compare_slab(A_t, b, pen, keep, label: str, stats: dict,
         A_t, torch.zeros(n, device=A_t.device), -b, steps, keep, pen, 0.0)
     args = (A_t, x0, r0, steps, keep, pen, 0.0)
     xk, rk, pk = k8.sweep_slab_t(*args)
+    x1, r1 = k1.sweep_t(*args)
+    require(torch.equal(xk, x1) and torch.equal(rk, r1),
+            f"{label} sweep_slab_t: x or r differs from K1's on the same "
+            "slab")
     xp, rp, pp = k8.sweep_slab_t_plain(*args)
     tol = 1e-4 if nb > 64 else 1e-5
     rn = float(torch.linalg.vector_norm(rp))
@@ -1412,7 +1441,118 @@ def compare_slab(A_t, b, pen, keep, label: str, stats: dict,
             "ms": times[0], "us_per_block": 1e3 * times[0] / nb,
             "k1_ms_same_slab": k1_ms, "plain_ms": times[1],
             "bound_ms": stats["sweep_slab_t"]["bound_ms"],
-            "grid": k8.slab_grid(A_t.device, B, m)}), flush=True)
+            "plan": k1_plan(A_t.device, B, m)}), flush=True)
+
+
+def first_check_at(rel_gaps, level: float):
+    """Index of the first check whose rel_gap is <= level, else None."""
+    return next((i for i, v in enumerate(rel_gaps) if v <= level), None)
+
+
+def path_numbers(card: dict, cpu: dict, tol: float) -> dict:
+    """What ``path_check`` compares: over the checks both runs reached, the
+    largest relative difference of the primal objectives and the largest
+    ratio of the f32 rel_gap readings (either way round) while the CPU's
+    is >= PATH_LEVELS[0] x tol; per level of PATH_LEVELS, the card's first
+    crossing minus the CPU's, in checks (None where a run never reached
+    the level); the card's last decade (checks from its first reading <=
+    PATH_LEVELS[0] x tol to its last check) minus the CPU's."""
+    n = min(len(card["primal"]), len(cpu["primal"]))
+    pc = [float(v) for v in card["primal"][:n]]
+    ph = [float(v) for v in cpu["primal"][:n]]
+    ratios = [max(a / b, b / a) if a > 0 else math.inf
+              for a, b in zip(card["rel_gap"][:n], cpu["rel_gap"][:n])
+              if b >= PATH_LEVELS[0] * tol]
+    shifts = {}
+    for f in PATH_LEVELS:
+        ic = first_check_at(card["rel_gap"], f * tol)
+        ih = first_check_at(cpu["rel_gap"], f * tol)
+        shifts[f"{f * tol:g}"] = (None if ic is None or ih is None
+                                  else ic - ih)
+    ic, ih = (first_check_at(run["rel_gap"], PATH_LEVELS[0] * tol)
+              for run in (card, cpu))
+    last = (None if ic is None or ih is None
+            else (len(card["rel_gap"]) - ic) - (len(cpu["rel_gap"]) - ih))
+    return dict(primal_rel_diff=max(abs(a - b) / abs(b)
+                                    for a, b in zip(pc, ph)),
+                rel_gap_ratio=max(ratios, default=1.0),
+                crossing_shift=shifts, last_decade_shift=last, checks=n)
+
+
+def path_check(card: dict, cpu: dict, tol: float, gap_every: int
+               ) -> list[str]:
+    """The failures of a card run held to the CPU run of the same input,
+    method and penalty (an empty list: it passes).  Each run is a dict of
+    its history (``primal``, ``rel_gap``: one entry per check, check 0 at
+    the start), ``converged`` (stopped at rel_gap <= tol, not on the stall
+    rule or max_iters), ``f64_rel_gap`` (the f64 gap of the returned x
+    before the polish) and, after the polish, ``polished_rel_gap`` and
+    ``support``.  Required:
+
+      1. the same path: the primal objective at every check both runs
+         reached within PATH_RTOL, and the f32 rel_gap within a factor of
+         PATH_GAP_FACTOR while the CPU's is >= PATH_LEVELS[0] x tol (near
+         the optimum the primal moves with the square of the iterate's
+         error, the gap with the error itself);
+      2. the same speed: for each level in PATH_LEVELS x tol, the first
+         check at which the f32 rel_gap is <= the level within one check
+         of the CPU's; and the checks from the first reading <=
+         PATH_LEVELS[0] x tol to the stop within PATH_LAST_DECADE of the
+         CPU's (a fault that slows only the last decade);
+      3. a real stop: both converged; the card's f64 gap before the polish
+         <= 2 tol, or twice the CPU's where the CPU's is above tol (the
+         sharded BCD never refreshes r, so its f32 reading carries r's
+         drift: the CPU's l1 run reads <= 1e-6 at an f64 gap of 3e-6 to
+         6e-6); after the polish both <= tol with the same support."""
+    out = []
+    nums = path_numbers(card, cpu, tol)
+    if not nums["primal_rel_diff"] <= PATH_RTOL:
+        out.append(f"primal objectives part by {nums['primal_rel_diff']:.3e}"
+                   f" (relative) within {nums['checks']} checks")
+    if not nums["rel_gap_ratio"] <= PATH_GAP_FACTOR:
+        out.append(f"f32 rel_gap readings part by a factor of "
+                   f"{nums['rel_gap_ratio']:.3f} above "
+                   f"{PATH_LEVELS[0] * tol:g}")
+    for level, shift in nums["crossing_shift"].items():
+        if shift is None or abs(shift) > 1:
+            out.append(f"first check at rel_gap <= {level}: card "
+                       f"{first_check_at(card['rel_gap'], float(level))}, "
+                       f"CPU {first_check_at(cpu['rel_gap'], float(level))}"
+                       f" (checks of {gap_every} steps)")
+    last = nums["last_decade_shift"]
+    if last is not None and abs(last) > PATH_LAST_DECADE:
+        out.append(f"last decade {last:+d} checks against the CPU's (checks"
+                   f" of {gap_every} steps)")
+    for name, run in (("card", card), ("CPU", cpu)):
+        if not run["converged"]:
+            out.append(f"{name} run did not converge (last rel_gap "
+                       f"{run['rel_gap'][-1]})")
+        if not run["polished_rel_gap"] <= tol:
+            out.append(f"{name} polished f64 gap {run['polished_rel_gap']}")
+    if not card["f64_rel_gap"] <= 2 * max(tol, cpu["f64_rel_gap"]):
+        out.append(f"card f64 gap before the polish {card['f64_rel_gap']}"
+                   f" (CPU {cpu['f64_rel_gap']})")
+    if not bool((card["support"] == cpu["support"]).all()):
+        out.append("support differs from the CPU's after the polish")
+    return out
+
+
+def path_run(problem, run: dict, A_host, b_host, polish_tol: float) -> dict:
+    """``run`` (a sharded solve's gathered ``x``, history ``primal`` and
+    ``rel_gap``, ``converged``) with what ``path_check`` reads of its x:
+    the f64 gap before the polish, and the f64 gap and support of the
+    polish to ``polish_tol``."""
+    import numpy as np
+    import torch
+
+    import convex_optimization_tpu_torch as cot
+
+    x = torch.from_numpy(np.asarray(run["x"]))
+    pr = cot.polish_support(problem, x, tol=polish_tol, A_host=A_host,
+                            b_host=b_host)
+    return dict(run, f64_rel_gap=float(cot.duality_gap(
+        problem, x, precise=True).rel_gap),
+        polished_rel_gap=pr.rel_gap, support=np.abs(pr.x) > 1e-4)
 
 
 def sharded_ranks_job(g, A_s, b_s, pens_s, A_shared, b_h, lam_h) -> dict:
@@ -1487,7 +1627,10 @@ def sharded_ranks_job(g, A_s, b_s, pens_s, A_shared, b_h, lam_h) -> dict:
                                 consensus=mode, **kw)
                 small[(where, method, mode, kind)] = dict(
                     x=res.x.cpu().numpy(), k=res.iterations,
-                    rel_gap=res.rel_gap, wall=res.wall_time_s,
+                    best_rel_gap=res.rel_gap, wall=res.wall_time_s,
+                    primal=res.history["primal"].tolist(),
+                    rel_gap=res.history["rel_gap"].tolist(),
+                    converged=bool(res.converged),
                     launches=dict(_build.launches))
 
     p_head = Problem(A_t=A_shared.unsqueeze(1), b=b_h, penalty=l1(lam_h))
@@ -1511,6 +1654,27 @@ def sharded_ranks_job(g, A_s, b_s, pens_s, A_shared, b_h, lam_h) -> dict:
     return dict(exact=exact, refused=refused, small=small, head=head)
 
 
+def shard_small_instance():
+    """The small sharded runs' instance (SHARD_SMALL, host arrays) and
+    ``problem_from_numpy``'s penalty arguments of its l1 and its weighted
+    group_l2 (SHARD_GROUPS groups, weights in [0.5, 1.5), 0.1 lam_max)."""
+    import numpy as np
+
+    from convex_optimization_tpu_torch.core.datagen import (
+        make_lasso_instance_host,
+    )
+
+    small, A_s, b_s = make_lasso_instance_host(*SHARD_SMALL, device="cpu")
+    w_s = np.random.default_rng(SHARD_SMALL[0]).uniform(
+        0.5, 1.5, SHARD_GROUPS).astype(np.float32)
+    g_norms = np.linalg.norm((A_s.T @ b_s).reshape(SHARD_GROUPS, -1), axis=1)
+    return A_s, b_s, {
+        "l1": dict(penalty_kind="l1", lam1=float(small.problem.penalty.lam1)),
+        "group_l2": dict(penalty_kind="group_l2", ngroups=SHARD_GROUPS,
+                         weights=w_s,
+                         lam1=float(0.1 * (g_norms / w_s).max()))}
+
+
 def sharded_phase(device, problem, A_np, b_np, gpu: str, power: str
                   ) -> int:
     """Phase 10: the column-sharded path.  Returns K8's launches on the
@@ -1529,15 +1693,7 @@ def sharded_phase(device, problem, A_np, b_np, gpu: str, power: str
     from convex_optimization_tpu_torch.parallel.launch import run_ranks
     from convex_optimization_tpu_torch.parallel.mesh import init_multihost
 
-    small, A_s, b_s = make_lasso_instance_host(*SHARD_SMALL, device="cpu")
-    w_s = np.random.default_rng(SHARD_SMALL[0]).uniform(
-        0.5, 1.5, SHARD_GROUPS).astype(np.float32)
-    g_norms = np.linalg.norm((A_s.T @ b_s).reshape(SHARD_GROUPS, -1), axis=1)
-    pens_s = {"l1": dict(penalty_kind="l1",
-                         lam1=float(small.problem.penalty.lam1)),
-              "group_l2": dict(penalty_kind="group_l2", ngroups=SHARD_GROUPS,
-                               weights=w_s,
-                               lam1=float(0.1 * (g_norms / w_s).max()))}
+    A_s, b_s, pens_s = shard_small_instance()
     probs_s = {k: cot.problem_from_numpy(A_s, b_s, device="cpu", **pen)
                for k, pen in pens_s.items()}
     # the ranks map the headline A from shared memory (no pickled copy)
@@ -1559,34 +1715,38 @@ def sharded_phase(device, problem, A_np, b_np, gpu: str, power: str
                 f"gloo on CUDA tensors refused {rank['refused']}")
     refused = r0["refused"]
 
-    # the small runs: card against CPU, each certified after the polish
-    gap_every = SHARD_BCD["gap_every"]
+    # the small runs: each certified after the polish; each card run held
+    # to the CPU run of the same input, method and penalty by path_check
     smalls = {}
     polished = {}
     for key, run in r0["small"].items():
-        where, method, mode, kind = key
-        pr = cot.polish_support(probs_s[kind], torch.from_numpy(run["x"]),
-                                tol=1e-6, A_host=A_s, b_host=b_s)
-        require(pr.rel_gap <= 1e-6,
-                f"sharded small {key}: f64 gap {pr.rel_gap}")
-        polished[key] = np.abs(pr.x) > 1e-4
-        smalls["/".join(key)] = dict(k=run["k"], f32_rel_gap=run["rel_gap"],
-                                     f64_rel_gap=pr.rel_gap,
-                                     wall_s=run["wall"])
-        if where == "card":
-            if method == "bcd_pallas":
-                for rank in ranks:
-                    lc = rank["small"][key]["launches"]
-                    require(lc.get("sweep_slab_t", 0) > 0
-                            and lc.get("sweep_t", 0) == 0,
-                            f"sharded small {key}: launches {lc}")
-            ref = r0["small"][("cpu",) + key[1:]]
-            require(abs(run["k"] - ref["k"]) <= gap_every,
-                    f"sharded small {key}: {run['k']} steps on the card, "
-                    f"{ref['k']} on the CPU")
+        polished[key] = path_run(probs_s[key[3]], run, A_s, b_s, 1e-6)
+        pr_gap = polished[key]["polished_rel_gap"]
+        require(pr_gap <= 1e-6, f"sharded small {key}: f64 gap {pr_gap}")
+        smalls["/".join(key)] = dict(
+            k=run["k"], f32_rel_gap=run["best_rel_gap"],
+            f64_rel_gap_unpolished=polished[key]["f64_rel_gap"],
+            f64_rel_gap=pr_gap, wall_s=run["wall"])
+    for key in polished:
+        if key[0] != "card":
+            continue
+        if key[1] == "bcd_pallas":
+            for rank in ranks:
+                lc = rank["small"][key]["launches"]
+                require(lc.get("sweep_slab_t", 0) > 0
+                        and lc.get("sweep_t", 0) == 0,
+                        f"sharded small {key}: launches {lc}")
+        kw = SHARD_BCD if key[1] == "bcd_pallas" else SHARD_FISTA
+        ref = polished[("cpu",) + key[1:]]
+        fails = path_check(polished[key], ref, kw["tol"], kw["gap_every"])
+        require(not fails, f"sharded small {key} against the CPU: "
+                f"{'; '.join(fails)}")
+        smalls["/".join(key)]["path"] = path_numbers(polished[key], ref,
+                                                     kw["tol"])
     for key in polished:
         other = ("cpu",) + key[1:] if key[0] == "card" else key
-        require(bool((polished[key] == polished[other]).all()),
+        require(bool((polished[key]["support"]
+                      == polished[other]["support"]).all()),
                 f"sharded small {key}: support differs from the CPU's")
     log(f"# sharded small {SHARD_SMALL[1]}x{SHARD_SMALL[2]} P={SHARD_P}: "
         f"{smalls}; refused on gloo with CUDA tensors: {refused}")

@@ -9,8 +9,28 @@
 //   r    += A_t[j]^T (x_j' - x_j)                 (m axpys of length B)
 //
 // The TPU kernel's MXU dots and one-hot group matmuls are not copied: f32
-// FMAs, fixed-order reductions, no float atomics.  The column-sharded
-// solver's slab sweep (K8) is csrc/sweep_slab.cu.
+// FMAs, fixed-order reductions, no float atomics.
+//
+// K8 — the column-sharded solver's slab sweep — is the payload instance of
+// the same body (PAY): one rank's slab of A_t (nb_loc, B, m) from the
+// replicated consensus residual r_in, with the merge's payload written for
+// the one all-reduce of a sharded BCD step.  It replaces the Pallas kernel
+// convex_optimization_tpu/ops/bcd_sweep_pallas.py `_sweep_kernel`
+// (wrapper `bcd_sweep_pallas`; the merge is parallel/sharded.py
+// `sharded_bcd` there):
+//
+//   payload[0:m]   = r_out - r_in                (the consensus payload dr)
+//   payload[m]     = <x, dx>,  payload[m + 1] = <dx, dx>,
+//   payload[m + 2] = g(x + dx) - g(x)            (Penalty.value_diff)
+//
+// After barrier 2 every CTA holds the same bits of dx, so CTA 0 adds each
+// block's terms to three running sums, in block order, beside its phase 2:
+// its last warp (kPayWarp) keeps them, and that warp holds no phase-2 unit
+// wherever the split phase 2 leaves a warp free (the headline's rank slab:
+// 152 of 384 threads), so the sums cost CTA 0 no time there.  At the end
+// every CTA writes dr for its own rows.  The payload adds no
+// barrier and changes no sum of x or r: K8's x_out and r_out are K1's, bit
+// for bit, on the same slab and plan.
 //
 // Design: K5's pipeline (csrc/sweep_batch.cu) at one lambda.  One
 // cooperative launch per sweep, one CTA of 384 threads per SM, two grid
@@ -68,7 +88,10 @@
 // Penalties: 0 = l1 (soft threshold), 1 = nonneg_l1 (shift and clip),
 // 2 = group_l2 over contiguous groups of gsize coordinates (gsize divides
 // B), weights w (n / gsize,) or null for ones: v = x_j - t_j g is scaled by
-// max(0, 1 - t_j lam1 w_g / max(||v_g||, 1e-30)).
+// max(0, 1 - t_j lam1 w_g / max(||v_g||, 1e-30)).  The payload's
+// value_diff is cancellation-free: |a + d| - |a| = sign(a) d where the sign
+// does not flip, and per group ||a + d|| - ||a|| = (2 <a, d> + ||d||^2) /
+// (||a + d|| + ||a||).
 //
 // Blocks whose tile does not fit even the plainest layout (the first
 // design's, ops/bcd_sweep.k1_smem_bytes) go to K9 (csrc/sweep_tiled.cu).
@@ -84,6 +107,7 @@ namespace {
 
 constexpr int kThreads = 384;
 constexpr int kWarps = kThreads / 32;
+constexpr int kPayWarp = kWarps - 1;  // K8: the warp that keeps the sums
 constexpr int kMaxSmemBytes = 227 * 1024;
 
 // Offsets in floats of the shared regions, and their total; the Python
@@ -160,14 +184,63 @@ __device__ __forceinline__ void dot_cols(const float* ring, const float* dx_s,
   }
 }
 
-template <bool VEC>
+// K8's terms of block j, added by CTA 0's warp kPayWarp alone to its
+// running sums in a fixed order (every lane the same bits): the sums of
+// x_j dx_j, dx_j^2 and the value_diff terms over the block.  For group_l2
+// the warp forms the groups' terms one group after another from x_j and
+// the dx the group prox wrote; no other warp waits for it.
+__device__ __forceinline__ void payload_terms(
+    const float* xj_g, const float* dx_s, const float* w_j, int B, int gsize,
+    int gpb, bool group, int lane, float (&acc)[3]) {
+  float s_xd = 0.0f, s_dd = 0.0f, s_g = 0.0f;
+  if (group) {
+    for (int q = 0; q < gpb; ++q) {
+      float no = 0.0f, nn = 0.0f, ad = 0.0f, dd = 0.0f;
+      for (int i = lane; i < gsize; i += 32) {
+        const float a = xj_g[q * gsize + i];
+        const float d = dx_s[q * gsize + i];
+        const float an = a + d;
+        no = fmaf(a, a, no);
+        nn = fmaf(an, an, nn);
+        ad = fmaf(a, d, ad);
+        dd = fmaf(d, d, dd);
+      }
+      no = warp_sum(no);
+      nn = warp_sum(nn);
+      ad = warp_sum(ad);
+      dd = warp_sum(dd);
+      const float wq = w_j != nullptr ? w_j[q] : 1.0f;
+      s_xd += ad;
+      s_dd += dd;
+      s_g += wq * (2.0f * ad + dd) / fmaxf(sqrtf(nn) + sqrtf(no), 1e-30f);
+    }
+  } else {
+#pragma unroll 4
+    for (int b = lane; b < B; b += 32) {
+      const float a = xj_g[b];
+      const float d = dx_s[b];
+      const float an = a + d;
+      s_xd = fmaf(a, d, s_xd);
+      s_dd = fmaf(d, d, s_dd);
+      s_g += an * a > 0.0f ? (a > 0.0f ? d : -d) : fabsf(an) - fabsf(a);
+    }
+    s_xd = warp_sum(s_xd);
+    s_dd = warp_sum(s_dd);
+    s_g = warp_sum(s_g);
+  }
+  acc[0] += s_xd;
+  acc[1] += s_dd;
+  acc[2] += s_g;
+}
+
+template <bool VEC, bool PAY>
 __global__ void __launch_bounds__(kThreads, 1)
 sweep_kernel(const float* __restrict__ A_t, const float* __restrict__ x_in,
              const float* __restrict__ r_in,
              const float* __restrict__ steps,
              const uint8_t* __restrict__ mask, const float* __restrict__ w,
              float* __restrict__ x_out, float* __restrict__ r_out,
-             float* partials, unsigned* bar,
+             float* __restrict__ payload, float* partials, unsigned* bar,
              int n_blocks, int B, int m, int rows, int ld, int P, int S1,
              int S2, int RW, int gsize, float lam1, float lam2, int kind,
              int copy) {
@@ -200,6 +273,7 @@ sweep_kernel(const float* __restrict__ A_t, const float* __restrict__ x_in,
   const bool group = kind == 2;
   const int gpb = group ? B / gsize : 0;
   float* dx_g = partials + (size_t)G * B;  // partials (G, B), dx (B)
+  float pay[3] = {0.0f, 0.0f, 0.0f};  // K8: CTA 0's running sums
 
   // b-rows [b0, b1) of tile jj into their ring slots (row 0 at slot base):
   // one cp.async group of 16-byte (copy 1) or 4-byte copies by every thread
@@ -364,6 +438,10 @@ sweep_kernel(const float* __restrict__ A_t, const float* __restrict__ x_in,
       }
       __syncthreads();
     }
+    if (PAY && c == 0 && warp == kPayWarp) {
+      payload_terms(xj_g, dx_s, w != nullptr ? w + (size_t)j * gpb : nullptr,
+                    B, gsize, gpb, group, lane, pay);
+    }
 
     // phase 2: r += A_t[j]^T dx over this CTA's rows, units (s, q) (all W
     // rows of a unit exist: cnt % W == 0 when VEC, and units past cnt skip)
@@ -403,17 +481,27 @@ sweep_kernel(const float* __restrict__ A_t, const float* __restrict__ x_in,
   }
   cp_async_wait<0>();
   __syncthreads();
-  for (int i = tid; i < cnt; i += kThreads) r_out[i0 + i] = r_s[i];
+  for (int i = tid; i < cnt; i += kThreads) {
+    r_out[i0 + i] = r_s[i];
+    if (PAY) payload[i0 + i] = r_s[i] - r_in[i0 + i];
+  }
+  if (PAY && c == 0 && warp == kPayWarp && lane == 0) {
+    payload[m] = pay[0];
+    payload[m + 1] = pay[1];
+    payload[m + 2] = lam1 * pay[2];
+  }
 }
 
 using Kernel = void (*)(const float*, const float*, const float*,
                         const float*, const uint8_t*, const float*, float*,
-                        float*, float*, unsigned*, int, int, int, int, int,
-                        int, int, int, int, int, float, float, int, int);
+                        float*, float*, float*, unsigned*, int, int, int,
+                        int, int, int, int, int, int, int, float, float, int,
+                        int);
 
-// The instance for the read width.
-Kernel kernel_for(bool vec) {
-  return vec ? sweep_kernel<true> : sweep_kernel<false>;
+// The instance for the read width, K1's or K8's (with the payload).
+Kernel kernel_for(bool vec, bool pay) {
+  if (pay) return vec ? sweep_kernel<true, true> : sweep_kernel<false, true>;
+  return vec ? sweep_kernel<true, false> : sweep_kernel<false, false>;
 }
 
 size_t smem_of(int B, int rows, int ld, int P, int S1, int S2, int RW,
@@ -437,14 +525,49 @@ bool plan_ok(int B, int m, int gsize, int grid, int rows, int ld, int P,
           (long long)(grid - 1) * rows < m);
 }
 
+// One sweep of K1 (payload null) or K8 on a checked plan.
+int launch(const float* A_t, const float* x_in, const float* r_in,
+           const float* steps, const uint8_t* mask, const float* w,
+           float* x_out, float* r_out, float* payload, float* partials,
+           unsigned* bar, int n_blocks, int B, int m, int gsize, float lam1,
+           float lam2, int kind, int grid, int rows, int ld, int P, int S1,
+           int S2, int RW, int vec, int copy, cudaStream_t stream) {
+  if (kind != 2) gsize = 0;
+  if (!plan_ok(B, m, gsize, grid, rows, ld, P, S1, S2, RW, vec) ||
+      n_blocks < 1 || copy < 0 || copy > 1 || (copy == 1 && !vec) ||
+      bar == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = smem_of(B, rows, ld, P, S1, S2, RW, vec);
+  if (smem > (size_t)kMaxSmemBytes) return (int)cudaErrorInvalidValue;
+  const Kernel k = kernel_for(vec != 0, payload != nullptr);
+  cudaError_t err = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {(void*)&A_t,      (void*)&x_in,   (void*)&r_in,
+                  (void*)&steps,    (void*)&mask,   (void*)&w,
+                  (void*)&x_out,    (void*)&r_out,  (void*)&payload,
+                  (void*)&partials, (void*)&bar,    (void*)&n_blocks,
+                  (void*)&B,        (void*)&m,      (void*)&rows,
+                  (void*)&ld,       (void*)&P,      (void*)&S1,
+                  (void*)&S2,       (void*)&RW,     (void*)&gsize,
+                  (void*)&lam1,     (void*)&lam2,   (void*)&kind,
+                  (void*)&copy};
+  err = cudaLaunchCooperativeKernel((void*)k, dim3(grid), dim3(kThreads),
+                                    args, smem, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Check a plan of K1 on the current device: out[0] = the shared-memory
-// bytes of its layout, out[1] = CTAs that fit on one SM (0 when the layout
-// exceeds shared memory).  Returns a cudaError_t (cudaErrorNotSupported without
-// cooperative launch).
+// Check a plan of K1 and K8 on the current device: out[0] = the
+// shared-memory bytes of its layout, out[1] = CTAs that fit on one SM, the
+// fewer of the two instances (0 when the layout exceeds shared memory).
+// Returns a cudaError_t (cudaErrorNotSupported without cooperative
+// launch).
 int cot_sweep_check(int B, int rows, int ld, int P, int S1, int S2,
                     int RW, int vec, int* out) {
   out[0] = out[1] = 0;
@@ -458,20 +581,26 @@ int cot_sweep_check(int B, int rows, int ld, int P, int S1, int S2,
   const size_t smem = smem_of(B, rows, ld, P, S1, S2, RW, vec);
   out[0] = (int)smem;
   if (smem > (size_t)kMaxSmemBytes) return (int)cudaSuccess;
-  const Kernel k = kernel_for(vec != 0);
-  err = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[1], k,
-                                                            kThreads, smem);
+  int fit[2] = {0, 0};
+  for (int pay = 0; pay < 2; ++pay) {
+    const Kernel k = kernel_for(vec != 0, pay != 0);
+    err = cudaFuncSetAttribute(
+        k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit[pay], k,
+                                                        kThreads, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  out[1] = fit[0] < fit[1] ? fit[0] : fit[1];
+  return (int)cudaSuccess;
 }
 
-// One sweep on the plan (grid, rows, ld, P, S1, S2, RW, vec); copy: how
-// the tile is loaded, 1 16-byte cp.async (needs vec and A_t 16-byte
-// aligned), 0 4-byte cp.async.  x_out / r_out must not alias the inputs; partials holds (grid + 1) B floats; bar is one
-// unsigned, zero at the launch (the grid barriers' arrival counter).  mask
-// (n,) and the group weights w (n / gsize,) may be null; gsize is read for
-// kind 2 only.
+// One sweep of K1 on the plan (grid, rows, ld, P, S1, S2, RW, vec); copy:
+// how the tile is loaded, 1 16-byte cp.async (needs vec and A_t 16-byte
+// aligned), 0 4-byte cp.async.  x_out / r_out must not alias the inputs;
+// partials holds (grid + 1) B floats; bar is one unsigned, zero at the
+// launch (the grid barriers' arrival counter).  mask (n,) and the group
+// weights w (n / gsize,) may be null; gsize is read for kind 2 only.
 int cot_sweep_t(const float* A_t, const float* x_in, const float* r_in,
                 const float* steps, const uint8_t* mask, const float* w,
                 float* x_out, float* r_out, float* partials, unsigned* bar,
@@ -479,31 +608,24 @@ int cot_sweep_t(const float* A_t, const float* x_in, const float* r_in,
                 float lam2, int kind, int grid, int rows, int ld, int P,
                 int S1, int S2, int RW, int vec, int copy,
                 cudaStream_t stream) {
-  if (kind != 2) gsize = 0;
-  if (!plan_ok(B, m, gsize, grid, rows, ld, P, S1, S2, RW, vec) ||
-      n_blocks < 1 || copy < 0 || copy > 1 || (copy == 1 && !vec) ||
-      bar == nullptr) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const size_t smem = smem_of(B, rows, ld, P, S1, S2, RW, vec);
-  if (smem > (size_t)kMaxSmemBytes) return (int)cudaErrorInvalidValue;
-  const Kernel k = kernel_for(vec != 0);
-  cudaError_t err = cudaFuncSetAttribute(
-      k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  void* args[] = {(void*)&A_t,      (void*)&x_in,   (void*)&r_in,
-                  (void*)&steps,    (void*)&mask,   (void*)&w,
-                  (void*)&x_out,    (void*)&r_out,  (void*)&partials,
-                  (void*)&bar,      (void*)&n_blocks,
-                  (void*)&B,        (void*)&m,      (void*)&rows,
-                  (void*)&ld,       (void*)&P,      (void*)&S1,
-                  (void*)&S2,       (void*)&RW,     (void*)&gsize,
-                  (void*)&lam1,     (void*)&lam2,   (void*)&kind,
-                  (void*)&copy};
-  err = cudaLaunchCooperativeKernel((void*)k, dim3(grid), dim3(kThreads),
-                                    args, smem, stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return launch(A_t, x_in, r_in, steps, mask, w, x_out, r_out, nullptr,
+                partials, bar, n_blocks, B, m, gsize, lam1, lam2, kind, grid,
+                rows, ld, P, S1, S2, RW, vec, copy, stream);
+}
+
+// One slab sweep of K8: K1's sweep on the same plan and operands, and the
+// merge's payload (m + 3 floats, not aliasing the inputs).
+int cot_sweep_slab_t(const float* A_t, const float* x_in, const float* r_in,
+                     const float* steps, const uint8_t* mask, const float* w,
+                     float* x_out, float* r_out, float* payload,
+                     float* partials, unsigned* bar, int n_blocks, int B,
+                     int m, int gsize, float lam1, float lam2, int kind,
+                     int grid, int rows, int ld, int P, int S1, int S2,
+                     int RW, int vec, int copy, cudaStream_t stream) {
+  if (payload == nullptr) return (int)cudaErrorInvalidValue;
+  return launch(A_t, x_in, r_in, steps, mask, w, x_out, r_out, payload,
+                partials, bar, n_blocks, B, m, gsize, lam1, lam2, kind, grid,
+                rows, ld, P, S1, S2, RW, vec, copy, stream);
 }
 
 }  // extern "C"

@@ -3,7 +3,9 @@
 Counterpart of ``convex_optimization_tpu/ops/bcd_sweep_vpu.py``.  The
 kernel is ``csrc/sweep.cu`` (its note gives the design); ``sweep_t`` is its
 wrapper and ``sweep_t_plain`` its plain PyTorch version, which runs for
-CPU tensors and is the kernel's oracle on the card.
+CPU tensors and is the kernel's oracle on the card.  K8, the column-sharded
+solver's slab sweep (``ops/bcd_sweep_slab.py``), is the same kernel's
+payload instance on the same plan (``launch``).
 
 The TPU module's VMEM and 13 GiB HBM gates do not carry over: the H100's
 limit is the kernel's shared-memory tile (B x ceil(m / SMs) floats).
@@ -243,6 +245,47 @@ def sweep_plan(device: torch.device, B: int, m: int) -> SweepPlan:
     return plan
 
 
+def launch(name: str, A_t: torch.Tensor, x: torch.Tensor, r: torch.Tensor,
+           steps: torch.Tensor, keep_mask: torch.Tensor | None,
+           penalty: Penalty, lam2: float,
+           payload: torch.Tensor | None = None,
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One launch of ``csrc/sweep.cu`` on CUDA tensors, on K1's plan: K1
+    (``cot_sweep_t``), or K8 (``cot_sweep_slab_t``) where ``payload`` (m + 3
+    floats) is given; adds one to ``launches[name]``.  Returns (x, r)."""
+    if penalty.kind not in KIND_CODE:
+        raise ValueError(f"unknown penalty kind {penalty.kind!r}")
+    _check_operands(A_t, x, r, steps, keep_mask)
+    nb, B, m = A_t.shape
+    dev = A_t.device
+    gsize, w = group_operands(penalty, nb * B, B, dev)
+    plan = sweep_plan(dev, B, m)
+    # the tile's copies: 16-byte cp.async (the float4 instance on an
+    # aligned A_t), else 4-byte cp.async
+    copy = 1 if plan.vec and _aligned(A_t) else 0
+    x_out = torch.empty_like(x)
+    r_out = torch.empty_like(r)
+    partials = torch.empty(((plan.grid + 1) * B,), dtype=torch.float32,
+                           device=dev)
+    bar = torch.zeros((1,), dtype=torch.int32, device=dev)  # grid barrier
+    lib = _build.load()
+    head = (A_t.data_ptr(), x.data_ptr(), r.data_ptr(), steps.data_ptr(),
+            None if keep_mask is None else keep_mask.data_ptr(),
+            None if w is None else w.data_ptr(),
+            x_out.data_ptr(), r_out.data_ptr())
+    tail = (partials.data_ptr(), bar.data_ptr(), nb, B, m, gsize,
+            float(penalty.lam1), float(lam2), KIND_CODE[penalty.kind],
+            plan.grid, plan.rows, plan.ld, plan.prefetch, plan.s1, plan.s2,
+            plan.rw, int(plan.vec), copy, _build.stream_ptr(dev))
+    if payload is None:
+        err = lib.cot_sweep_t(*head, *tail)
+    else:
+        err = lib.cot_sweep_slab_t(*head, payload.data_ptr(), *tail)
+    _build.check(err, name)
+    _build.launches[name] += 1
+    return x_out, r_out
+
+
 def sweep_t(A_t: torch.Tensor, x: torch.Tensor, r: torch.Tensor,
             steps: torch.Tensor, keep_mask: torch.Tensor | None,
             penalty: Penalty, lam2: float,
@@ -259,33 +302,7 @@ def sweep_t(A_t: torch.Tensor, x: torch.Tensor, r: torch.Tensor,
         return sweep_t_plain(A_t, x, r, steps, keep_mask, penalty, lam2)
     if A_t.device.type != "cuda":
         raise ValueError(f"unsupported device {A_t.device}")
-    if penalty.kind not in KIND_CODE:
-        raise ValueError(f"unknown penalty kind {penalty.kind!r}")
-    _check_operands(A_t, x, r, steps, keep_mask)
-    nb, B, m = A_t.shape
-    dev = A_t.device
-    gsize, w = group_operands(penalty, nb * B, B, dev)
-    plan = sweep_plan(dev, B, m)
-    # the tile's copies: 16-byte cp.async (the float4 instance on an
-    # aligned A_t), else 4-byte cp.async
-    copy = 1 if plan.vec and _aligned(A_t) else 0
-    x_out = torch.empty_like(x)
-    r_out = torch.empty_like(r)
-    partials = torch.empty(((plan.grid + 1) * B,), dtype=torch.float32,
-                           device=dev)
-    bar = torch.zeros((1,), dtype=torch.int32, device=dev)  # grid barrier
-    err = _build.load().cot_sweep_t(
-        A_t.data_ptr(), x.data_ptr(), r.data_ptr(), steps.data_ptr(),
-        None if keep_mask is None else keep_mask.data_ptr(),
-        None if w is None else w.data_ptr(),
-        x_out.data_ptr(), r_out.data_ptr(), partials.data_ptr(),
-        bar.data_ptr(), nb, B, m, gsize, float(penalty.lam1), float(lam2),
-        KIND_CODE[penalty.kind], plan.grid, plan.rows, plan.ld,
-        plan.prefetch, plan.s1, plan.s2, plan.rw, int(plan.vec), copy,
-        _build.stream_ptr(dev))
-    _build.check(err, "sweep_t")
-    _build.launches["sweep_t"] += 1
-    return x_out, r_out
+    return launch("sweep_t", A_t, x, r, steps, keep_mask, penalty, lam2)
 
 
 def block_steps(block_L: torch.Tensor, lam2: float,

@@ -194,9 +194,10 @@ def sharded_fista(loc: Problem, L_total: float, state: SolveState,
 
 
 def _slab_sweep(loc: Problem, B: int, cfg: SolverConfig):
-    """The sweep of a slab at block width B: K8 where its tile fits, K9
-    with the payload as tensor ops otherwise; the plain version without
-    ``use_pallas`` (as the JAX package's oracle route)."""
+    """The sweep of a slab at block width B: K8 (K1's kernel with the
+    payload, on K1's plan) where K1's tile fits, K9 with the payload as
+    tensor ops otherwise; the plain version without ``use_pallas`` (as the
+    JAX package's oracle route)."""
     if not cfg.use_pallas:
         return sweep_slab_t_plain
     dev = loc.device

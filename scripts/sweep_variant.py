@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Write a copy of the port with one design choice of K1 (`csrc/sweep.cu`
-and its plan, `ops/bcd_sweep.py`) swapped for another, so
+"""Write a copy of the port with one design choice of K1 and K8
+(`csrc/sweep.cu` and its plan, `ops/bcd_sweep.py`) swapped for another, so
 that `scripts/time_sweep.py --root DEST` and `scripts/sharded_counts.py
 --root DEST` measure it beside the shipped kernel in one chip call.
 
@@ -19,6 +19,9 @@ Variants (NAME):
   reduce_one_warp  one warp sums each reduced coordinate's G partials
   rows_16, rows_32, rows_64
                    at least that many rows per CTA (fewer CTAs at small m)
+  payload_warp0    K8's running sums kept by warp 0 of CTA 0, which holds
+                   phase-2 units, in place of its last warp, which holds
+                   none at the rank slab
 
 DEST (e.g. build/variant_grid_sync) receives this checkout's
 `convex_optimization_tpu_torch/` with the variant's text replacements;
@@ -83,6 +86,10 @@ VARIANTS = {
     ],
     **{f"rows_{k}": [(PLAN, "G0 = min(sms, m)", f"G0 = min(sms, -(-m // {k}))")]
        for k in (16, 32, 64)},
+    "payload_warp0": [
+        (CU, "constexpr int kPayWarp = kWarps - 1;",
+         "constexpr int kPayWarp = 0;"),
+    ],
 }
 
 

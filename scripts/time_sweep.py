@@ -3,11 +3,11 @@
 slab twin with the merge payload) of one source tree on the card: K1 on the
 headline's A_t (1250 x 80 x 10 000, l1) with an all-ones keep mask as the
 main path passes it and with config 3's keep mask (nonneg_l1, 17 % of the
-columns kept, as config 3's last check leaves them), K1 on config 4's group
-tile (1000 x 200 x 20 000, group_l2 over groups of 200 with weights), and
-K8 and K1 on one rank's slab of the headline (625 x 80 x 10 000) and where
-n >> m (the small sharded instance's slab width, B = 200 at m = 500; K1
-also at B = 40, m = 200).
+columns kept, as config 3's last check leaves them), K1 and K8 on config
+4's group tile (1000 x 200 x 20 000, group_l2 over groups of 200 with
+weights), and K8 and K1 on one rank's slab of the headline (625 x 80 x
+10 000) and where n >> m (the small sharded instance's slab width, B =
+200 at m = 500, l1 and group_l2; K1 also at B = 40, m = 200).
 
     python3 scripts/time_sweep.py [--root DIR] [--only SETTING[,SETTING]]
 
@@ -56,10 +56,13 @@ SETTINGS = {
     "headline": (HEADLINE, 1250, "l1", "ones", "sweep_t"),
     "config3_mask": (HEADLINE, 1250, "nonneg_l1", "config3", "sweep_t"),
     "config4_group": (C4, 1000, "group_l2", None, "sweep_t"),
+    "config4_group_k8": (C4, 1000, "group_l2", None, "sweep_slab_t"),
     "slab_k8": (HEADLINE, 625, "l1", None, "sweep_slab_t"),
     "slab_k1": (HEADLINE, 625, "l1", None, "sweep_t"),
     "small_m": (SMALL_M, 500, "l1", None, "sweep_t"),
     "small_m_k8": (SMALL_M, 500, "l1", None, "sweep_slab_t"),
+    "small_m_group": (SMALL_M, 500, "group_l2", None, "sweep_t"),
+    "small_m_group_k8": (SMALL_M, 500, "group_l2", None, "sweep_slab_t"),
     "small_m200": (SMALL_M200, 2500, "l1", None, "sweep_t"),
 }
 

@@ -13,7 +13,8 @@ terms in another order),
 bound witness_gamma(m) ||A_j|| ||r|| per column, on which the f64 polish's
 certificate rests.  K2 and K3 give the same bits on two launches, and on
 unaligned or slab views as on aligned copies (torch.equal); K1 and K8
-give the same bits on two launches and on unaligned views.  K5 with a 0/1
+give the same bits on two launches and on unaligned views, and K8's x and
+r are K1's on the same slab (torch.equal: one kernel, one plan).  K5 with a 0/1
 row mask equals K5 on a masked copy of A bit for bit (torch.equal), with
 every penalty; K5, K6 and K7 give the same bits on two launches, and K5 on
 an unaligned A_t view the bits of the aligned copy (torch.equal).
@@ -679,6 +680,51 @@ def test_slab_sweep_kernel_matches_plain(cuda, m, n, B, kind):
                              else float(pen.weights.max()))])
     assert bool(((pay_k[m:] - want[m:]).abs() <= 1e-4 * scale).all())
     assert float(scale[1]) > 0
+
+
+def _k8_equals_k1(A_t, x, r, steps, keep, pen):
+    """K8 and K1 on the same slab and operands: x and r bit for bit."""
+    x8, r8, _ = sweep_slab_t(A_t, x, r, steps, keep, pen, 0.0)
+    x1, r1 = sweep_t(A_t, x, r, steps, keep, pen, 0.0)
+    assert torch.equal(x8, x1) and torch.equal(r8, r1)
+    assert float((x8 - x).abs().max()) > 0
+
+
+@pytest.mark.parametrize("where", ["rank_slab", "unaligned_view",
+                                   "config4_group"])
+def test_slab_kernel_equals_k1_on_the_same_slab(cuda, where):
+    """K8 is K1's payload instance on K1's plan, so its x and r are K1's
+    bit for bit: on rank 1's slab (625 x 80 x 10000, a view) of a
+    headline-shaped A_t at P = 2, on that slab as a view 4 bytes past a
+    16-byte boundary (4-byte copies), and at config 4's group tile (B =
+    200, m = 20 000, weighted group_l2 over groups of 200, a partial
+    prefetch) with a partly-zero mask."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    if where == "config4_group":
+        m, B, nb = 20_000, 200, 6
+        A_t = torch.randn(nb, B, m, generator=gen, device=cuda)
+        w = 0.5 + torch.rand(nb, generator=gen, device=cuda)
+        pen = Penalty(lam1=0.05, kind="group_l2", ngroups=nb, weights=w)
+        keep = torch.rand(nb * B, generator=gen, device=cuda) > 0.05
+    else:
+        m, B, nb = 10_000, 80, 625
+        A_t = torch.randn(2 * nb, B, m, generator=gen, device=cuda)[nb:]
+        pen, keep = Penalty(lam1=0.05, kind="l1"), None
+    A_t /= torch.linalg.vector_norm(A_t, dim=2, keepdim=True)
+    if where == "unaligned_view":
+        buf = torch.empty(A_t.numel() + 1, device=cuda)
+        A_u = buf[1:].view(A_t.shape)
+        A_u.copy_(A_t)
+        del A_t
+        A_t = A_u
+        assert A_t.is_contiguous() and A_t.data_ptr() % 16 != 0
+    x = torch.randn(nb * B, generator=gen, device=cuda)
+    x = torch.where(torch.rand(nb * B, generator=gen, device=cuda) < 0.1,
+                    x, torch.zeros_like(x))
+    b = torch.randn(m, generator=gen, device=cuda)
+    r = ax_minus_b_t_plain(A_t, x, b)
+    steps = block_steps(block_power_t_plain(A_t), 0.0, 0.5)
+    _k8_equals_k1(A_t, x, r, steps, keep, pen)
 
 
 def test_slab_kernel_refuses_the_tile_k9_takes(cuda):

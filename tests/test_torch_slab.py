@@ -1,7 +1,8 @@
 """K8 (the column-sharded slab sweep) and ``Penalty.value_diff`` in the port
 against the JAX package on the same arrays.
 
-K8's wrapper takes its plain version on the CPU; it is held to the JAX
+K8's wrapper (K1's kernel with the payload, on the card) takes its plain
+version on the CPU; it is held to the JAX
 package's resident Pallas sweep ``bcd_sweep_pallas`` in interpret mode in
 that kernel's own regime (m = 64, n = 1024, B = 256; tests/
 test_pallas_sweep.py), at its tolerance rtol 1e-4 / atol 1e-5 (the TPU
@@ -181,12 +182,18 @@ def test_slab_sweep_counts_no_launch_on_cpu():
 
 
 def test_slab_route_takes_k9_where_the_tile_does_not_fit():
-    """The sharded BCD's slab sweep: K8 where K1's tile fits (B = 80 at
-    m = 10000), else K9 with the payload as tensor ops (B = 2000 at m =
-    20000), the same result on CPU tensors; the plain sweep without
-    use_pallas."""
+    """The sharded BCD's slab sweep on K1's fit rule, which K8 shares with
+    K1 (one kernel, one plan): K8 where K1's tile fits (B = 80 at m =
+    10000: K1's plan exists there), else K9 with the payload as tensor ops
+    (B = 2000 at m = 20000: no plan), the same result on CPU tensors; the
+    plain sweep without use_pallas."""
     import types
 
+    from convex_optimization_tpu_torch.ops.bcd_sweep import (
+        H100_SMS,
+        sweep_route,
+        sweep_tiling,
+    )
     from convex_optimization_tpu_torch.parallel.sharded import _slab_sweep
     from convex_optimization_tpu_torch.solvers.common import SolverConfig
 
@@ -194,6 +201,9 @@ def test_slab_route_takes_k9_where_the_tile_does_not_fit():
     cpu = torch.device("cpu")
     fits = types.SimpleNamespace(m=10_000, device=cpu)
     wide = types.SimpleNamespace(m=20_000, device=cpu)
+    for B, m, route in ((80, 10_000, "k1"), (2000, 20_000, "k9")):
+        assert sweep_route(B, m, H100_SMS) == route
+        assert (sweep_tiling(B, m, H100_SMS) is not None) == (route == "k1")
     assert _slab_sweep(fits, 80, cfg) is sweep_slab_t
     assert _slab_sweep(fits, 80, SolverConfig()) is sweep_slab_t_plain
     k9 = _slab_sweep(wide, 2000, cfg)
