@@ -13,9 +13,11 @@ non-zero without one.  Phases, each of which fails the run if it fails:
      tolerances: at a small shape, on a 64-block slice of the main path's
      A_t (B = 80, m = 10000), and on the full A_t (1250 blocks), where
      the kernel's and the plain version's times are taken with CUDA
-     events (K2 and K3 launched twice, torch.equal, and one JSON line of
-     their times beside addmv and the bound; one JSON line of K1's time,
-     us per block and launch plan); K1 runs with a partly-zero
+     events (K2, K3 and K4 launched twice, torch.equal, and one JSON line
+     of K2's and K3's times beside addmv and the bound; one of K4's beside
+     matrix_norm, torch.bmm(A_t, A_t.mT) (the Gram alone) and the bounds
+     of its Gram design and of its first design; one JSON line of K1's
+     time, us per block and launch plan); K1 runs with a partly-zero
      keep mask at the small and slice shapes and with the main path's
      all-ones mask at full size; then a
      200 x 800 solve + polish on the card against the same solve on the
@@ -54,7 +56,10 @@ non-zero without one.  Phases, each of which fails the run if it fails:
      3-fold cv_lambda_path on the same instance, its refit certified the
      same; the bcd_batch lines carry the checks' share of the wall (K6 and
      K7 launches times their phase-5 times at L = 10);
-  8. config 4 (group lasso, 20k x 200k, 1000 groups of 200): group K1
+  8. config 4 (group lasso, 20k x 200k, 1000 groups of 200): K4 on the
+     full A_t at B = 200 (G_j on chip) and B = 2000 (G in global memory)
+     against its plain version, launched twice (torch.equal), timed (its
+     JSON line as at the headline, without matrix_norm); group K1
      (B = 200) and K9 (B = 2000, a tile K1 cannot hold), and K5's group
      prox at L = 10 (B = 200, random weights, unmasked and with a keep
      mask and a fold row mask; the masked K5 against K5 on a masked copy,
@@ -110,6 +115,7 @@ operations at 67 TFLOP/s f32), the card's name and power limit, and last
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -326,6 +332,75 @@ def compare_matvecs(A_t, b, x_probe, label: str, stats: dict, timed: bool,
     return at
 
 
+def power_work(nb: int, B: int, m: int, iters: int = 48) -> dict:
+    """K4's work at (nb, B, m) as (bytes, flops), each input read once and
+    each output written once: the Gram design's (A once; the upper
+    triangle of each G_j, B (B + 1) m flops a block, and iters + 1
+    matvecs on G_j) and the first design's ((4 iters + 2) m n flops, and
+    A read 2 iters + 1 times where a block does not fit the 50 MB L2)."""
+    n = nb * B
+    passes = 1 if 4 * B * m <= 50e6 else 2 * iters + 1
+    return {"gram": (4 * m * n + 4 * nb,
+                     B * (B + 1) * m * nb + 2 * (iters + 1) * B * B * nb),
+            "first_design": (4 * m * n * passes + 4 * nb,
+                             (4 * iters + 2) * m * n)}
+
+
+def bound_ms(work) -> float:
+    nbytes, flops = work
+    return max(1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / F32_FLOP_PER_S)
+
+
+def compare_power(A_t, label: str, stats: dict, timed: bool, card: tuple,
+                  main: bool = False):
+    """K4 against its plain version on one A_t, to 1e-4 relative per
+    block (48 iterations), launched twice (torch.equal); with ``timed``,
+    its time (CUDA events), the plain version's, ``torch.bmm(A_t,
+    A_t.mT)`` (the Gram alone: the yardstick of K4's first phase, never
+    called by the port) and both designs' bounds, in one JSON line; with
+    ``main`` (the main path's A_t) also ``matrix_norm(A_t, ord=2)**2``,
+    and the times go into ``stats`` (the kernels line).  Returns the plain
+    estimates."""
+    import torch
+
+    from convex_optimization_tpu_torch.ops import matvec as mv
+
+    nb, B, m = A_t.shape
+    L_k = mv.block_power_t(A_t)
+    L_p = mv.block_power_t_plain(A_t)
+    diff = (L_k - L_p).abs()
+    err = float(diff.max())
+    require(bool((diff <= 1e-4 * L_p.abs()).all()),
+            f"{label} block_power_t err {err}, worst ratio "
+            f"{float((diff / L_p.abs().clamp(min=1e-30)).max())}")
+    require(torch.equal(L_k, mv.block_power_t(A_t)),
+            f"{label} block_power_t differs run to run")
+    record(stats, "block_power_t", err)
+    if not timed:
+        return L_p
+    work = power_work(nb, B, m)
+    ms = time_ms(lambda: mv.block_power_t(A_t), 3)
+    plain_ms = time_ms(lambda: mv.block_power_t_plain(A_t), 1)
+    lib_ms = (time_ms(lambda: torch.linalg.matrix_norm(A_t, ord=2) ** 2, 1)
+              if main else None)
+    if main:
+        record(stats, "block_power_t", err, ms, plain_ms, lib_ms,
+               work["gram"])
+    print(json.dumps({
+        "metric": f"k4_ms_{label}_A_t_{nb}x{B}x{m}",
+        "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+        "bmm_ms": time_ms(lambda: torch.bmm(A_t, A_t.mT), 1),
+        "bound_ms": bound_ms(work["gram"]),
+        "first_design_bound_ms": bound_ms(work["first_design"]),
+        "max_abs_err": err, "max_rel_err": float((diff / L_p.abs().clamp(
+            min=1e-30)).max()),
+        "plan": dataclasses.asdict(mv.power_tiling(
+            nb, B, m, torch.cuda.get_device_properties(
+                A_t.device).multi_processor_count)),
+        "gpu": card[0], "power_limit": card[1]}), flush=True)
+    return L_p
+
+
 def compare_kernels(A_t, b, x_probe, keep, label: str, stats: dict,
                     timed: bool, card: tuple) -> None:
     """Every kernel against its plain version on one A_t; ``x_probe`` is
@@ -345,19 +420,8 @@ def compare_kernels(A_t, b, x_probe, keep, label: str, stats: dict,
     nb, B, m = A_t.shape
     zeros_n = torch.zeros(nb * B, device=A_t.device)
 
-    # K4
-    L_k = mv.block_power_t(A_t)
-    L_p = mv.block_power_t_plain(A_t)
-    err = float((L_k - L_p).abs().max())
-    require(err <= 1e-4 * float(L_p.abs().max()),
-            f"{label} block_power_t err {err}")
-    n, iters = nb * B, 48
-    times = (time_ms(lambda: mv.block_power_t(A_t), 1),
-             time_ms(lambda: mv.block_power_t_plain(A_t), 1),
-             time_ms(lambda: torch.linalg.matrix_norm(A_t, ord=2) ** 2, 1),
-             (4 * m * n + 4 * nb, (4 * iters + 2) * m * n)) \
-        if timed else ()
-    record(stats, "block_power_t", err, *times)
+    L_p = compare_power(A_t, label, stats, timed, card, main=True)
+    n = nb * B
 
     compare_matvecs(A_t, b, x_probe, label, stats, timed, card)
 
@@ -1228,6 +1292,11 @@ def config4(device, gpu: str, power: str, stats: dict) -> dict:
     compare_group_batch(A_rows, problem.b, gsize, w4, GROUP_B, "config4-full",
                         stats, True, (gpu, power))
     del w4
+    # K4 on the full A_t at both routes' widths: B = 200 (G_j on chip)
+    # and B = 2000 (G in global memory, a launch per step)
+    for _, _, B, _ in C4_ROUTES:
+        compare_power(A_rows.view(n // B, B, m), f"config4-B{B}", stats,
+                      True, (gpu, power))
     k9 = timed["sweep_tiled_t"]
     record(stats, "sweep_tiled_t", k9["max_abs_err"], k9["ms"],
            k9["plain_ms"], None, k9["work"])

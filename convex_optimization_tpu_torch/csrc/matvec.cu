@@ -16,10 +16,12 @@
 // (ops/matvec.matvec_plan asks the occupancy of the C side below).  When
 // m % 4 != 0 or a pointer is not 16-byte aligned (slab and slice views of
 // A_t reach these kernels), the `kVec = false` instances load A as
-// scalars.  K4 runs once per solve; its 49 passes over each 3.2 MB block
-// do not fit L2 when 132 blocks run at once, so it re-reads A from HBM
-// each iteration (~100 passes over A in all) — set-up work, recorded
-// rather than tuned.
+// scalars.  K4 runs once per solve, path or rank.  The TPU kernel's 48
+// power iterations only ever apply A_j^T A_j, so K4 forms each block's
+// Gram matrix G_j = A_t[j] A_t[j]^T (B x B) in one pass over A, then
+// iterates on G_j, which is B / m of the block's size: it is bound by
+// one read of A or by the Gram's f32 multiply-adds (one triangle: B^2 m
+// per block), whichever is larger (the K4 note).
 //
 // No kernel uses atomics: every sum is in a fixed order that depends only
 // on (n, m) and the card's SM count, so two launches on the same inputs
@@ -28,6 +30,7 @@
 #include <cuda_runtime.h>
 
 #include "loads.cuh"
+#include "pipeline.cuh"
 #include "prox.cuh"
 
 namespace {
@@ -262,83 +265,376 @@ atr_finish_kernel(const float* __restrict__ partials,
 }
 
 // ---------------------------------------------------------------- K4 ----
-// One CTA per block j runs the whole power iteration on A_j^T = A_t[j]
-// (B, m), read from global memory (L2 where it still holds the block):
-//   v0 = 1 + 0.01 b / B  (the TPU kernel's tilted ones vector)
-//   repeat iters times:  u = A_j v (m,);  w = A_j^T u (B,);  v = w / ||w||
-//   out[j] = safety * ||A_j v||^2 / ||v||^2
-// u lives in shared memory (4 m bytes), v and w beside it.
+// The TPU kernel runs, on the VMEM-resident block A_j^T = A_t[j] (B, m):
+//   v0 = 1 + 0.01 b / B;
+//   iters times: w = A_j^T (A_j v), v = w / max(||w||, 1e-30)
+//   out[j] = safety * ||A_j v||^2 / max(||v||^2, 1e-30)
+// Here the same iterates run on G_j = A_t[j] A_t[j]^T: w = G_j v, and
+// ||A_j v||^2 = v^T G_j v (equal in exact arithmetic; the CPU tests hold
+// this reassociation to the JAX kernel).
+//
+// Gram phase (gram_kernel): a CTA of D x D threads forms one (D T) x
+// (D T) tile (I, J), I <= J, of the upper triangle of G_j's tiles, over
+// one slice of the m columns; thread (ty, tx) owns rows ty + D t and
+// columns tx + D u (t, u < T) in registers.  A_t[j]'s rows stream along m
+// through a kGramStages ring of cp.async copies (16 bytes where m % 4 ==
+// 0 and A_t is 16-byte aligned, else 4), kGramBK columns per stage, each
+// row padded to kGramLd floats so that the float4 reads along m are free
+// of bank conflicts; a diagonal tile loads one operand and forms only
+// the pairs u >= t (55 of 100 at T = 10, 36 of 64 at T = 8).  Each sum
+// runs along m in order; an off-diagonal tile is stored twice (mirrored),
+// so G_j is exactly symmetric.  Where the tiles cannot fill the card the
+// m columns are cut into S slices (grid.y) whose partial Grams
+// gram_sum_kernel adds in slice order.  Tiles (ops/matvec.power_tiling):
+// one per block for B <= 80 (80: D 8, T 10) and B <= 200 (200: D 20, T
+// 10), else the triangle of 128-tiles (D 16, T 8).  The shared-memory
+// reads bound the FMAs here (a float4 read feeds 2 T or, on a diagonal
+// tile, T + 1 of them): on an H100 the T = 5 tiles of the first build
+// took 3.56 ms at the headline and 38.4 ms at config 4's B = 200 against
+// 2.52 and 29.8 for T = 10 (PERF.md).
+//
+// Iteration phase, by shape (ops/matvec.power_tiling):
+//   route 0, G_j fits shared memory (4 (B^2 + 2 B) bytes, B <= 240):
+//     power_smem_kernel, one CTA per block, loads G_j once and runs every
+//     step on chip: thread i forms w_i = sum_k G[k, i] v_k in k order
+//     (G symmetric: a column, read without bank conflicts); every warp
+//     sums ||w||^2 in the same order;
+//   route 1, larger B: G stays in global memory and each step is one
+//     launch of power_step_kernel over all blocks (32 columns of G_j per
+//     CTA, its 8 warps taking every 8th row, the warps' sums added in
+//     warp order); each CTA normalises the last step's w itself, all in
+//     the same order, and power_finish_kernel forms the Rayleigh quotient.
+//
+// What bounds K4 on the H100: one read of A (4 n m bytes) against the
+// triangle's B m n f32 flops (B (B + 1) / 2 sums of m multiply-adds a
+// block) at 67 TFLOP/s: 1.19 ms against 1.2 ms at
+// the headline (1250 x 80 x 10000), 4.8 against 12 at config 4's B =
+// 200, 4.8 against 120 at B = 2000; the iterations read G (4 B n bytes,
+// from L2 or shared memory on route 0, 48 times from HBM on route 1).
+// No atomics: two launches give the same bits.
+constexpr int kGramBK = 32;                // columns of A_t per stage
+constexpr int kGramLd = kGramBK + 4;       // padded row of a stage (floats)
+constexpr int kGramStages = 3;
 constexpr int kPowThreads = 256;
+constexpr int kPowWarps = kPowThreads / 32;
+constexpr int kStepCols = 32;              // columns of G_j per step CTA
+constexpr size_t kPowMaxSmem = 227 * 1024;  // route 0's G_j, v and w
 
-__global__ void __launch_bounds__(kPowThreads)
-block_power_kernel(const float* __restrict__ A_t, float* __restrict__ out,
-                   int B, int m, int iters, float safety) {
-  extern __shared__ float sm[];
-  float* u = sm;          // (m,)
-  float* v = u + m;       // (B,)
-  float* w = v + B;       // (B,)
-  float* red = w + B;     // (32,)
-  const float* Aj = A_t + (size_t)blockIdx.x * B * m;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
+__host__ __device__ inline int tri_tiles(int nt) { return nt * (nt + 1) / 2; }
 
-  for (int b = tid; b < B; b += blockDim.x) {
-    v[b] = 1.0f + (0.01f * (float)b) / (float)B;
+// Tile p of the upper triangle of an nt x nt grid, in row order.
+__device__ __forceinline__ void tri_tile(int p, int nt, int& I, int& J) {
+  int i = 0;
+  while (p >= nt - i) {
+    p -= nt - i;
+    ++i;
   }
-  __syncthreads();
-  for (int it = 0; it <= iters; ++it) {
-    for (int i = tid; i < m; i += blockDim.x) {   // u = A_j v
-      float s = 0.0f;
-      for (int b = 0; b < B; ++b) s = fmaf(Aj[(size_t)b * m + i], v[b], s);
-      u[i] = s;
-    }
-    __syncthreads();
-    if (it == iters) break;
-    for (int b = warp; b < B; b += nwarps) {      // w = A_j^T u
-      float s = 0.0f;
-      for (int i = lane; i < m; i += 32) {
-        s = fmaf(Aj[(size_t)b * m + i], u[i], s);
-      }
-      for (int off = 16; off > 0; off >>= 1) {
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-      }
-      if (lane == 0) w[b] = s;
-    }
-    __syncthreads();
-    if (warp == 0) {                               // v = w / ||w||
-      float s = 0.0f;
-      for (int b = lane; b < B; b += 32) s = fmaf(w[b], w[b], s);
-      for (int off = 16; off > 0; off >>= 1) {
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-      }
-      const float nrm = fmaxf(sqrtf(s), 1e-30f);
-      for (int b = lane; b < B; b += 32) v[b] = w[b] / nrm;
-    }
-    __syncthreads();
-  }
-  // Rayleigh quotient ||A_j v||^2 / ||v||^2
-  float s = 0.0f;
-  for (int i = tid; i < m; i += blockDim.x) s = fmaf(u[i], u[i], s);
-  for (int off = 16; off > 0; off >>= 1) {
-    s += __shfl_xor_sync(0xffffffffu, s, off);
-  }
-  if (lane == 0) red[warp] = s;
-  __syncthreads();
-  if (warp == 0) {
-    float t = lane < nwarps ? red[lane] : 0.0f;
-    for (int off = 16; off > 0; off >>= 1) {
-      t += __shfl_xor_sync(0xffffffffu, t, off);
-    }
-    if (lane == 0) {
-      float d = 0.0f;
-      for (int b = 0; b < B; ++b) d = fmaf(v[b], v[b], d);
-      out[blockIdx.x] = safety * t / fmaxf(d, 1e-30f);
+  I = i;
+  J = i + p;
+}
+
+// Stage the kTile rows row0.. of A_j, columns [kc, kc + kGramBK), into
+// dst (zeros past B rows or past k_end).
+template <int kTile, int kThreads, int V>
+__device__ __forceinline__ void gram_stage(float* dst, const float* Aj,
+                                           int row0, int B, int m, int kc,
+                                           int k_end) {
+  constexpr int kPer = kGramBK / V;
+  for (int e = threadIdx.x; e < kTile * kPer; e += kThreads) {
+    const int r = e / kPer;
+    const int q = (e - r * kPer) * V;
+    float* d = dst + r * kGramLd + q;
+    if (row0 + r < B && kc + q < k_end) {
+      cp_async<V>(d, Aj + (size_t)(row0 + r) * m + kc + q);
+    } else {
+#pragma unroll
+      for (int i = 0; i < V; ++i) d[i] = 0.0f;
     }
   }
 }
 
+// acc[t][u] += sum over one stage of rows (ty + D t) of As times rows
+// (tx + D u) of Bs; kTri: only u >= t.
+template <int D, int T, bool kTri>
+__device__ __forceinline__ void gram_mac(const float* As, const float* Bs,
+                                         int tx, int ty,
+                                         float (&acc)[T][T]) {
+#pragma unroll
+  for (int kk = 0; kk < kGramBK; kk += 4) {
+    float4 a[T], b[T];
+#pragma unroll
+    for (int t = 0; t < T; ++t) {
+      a[t] = *reinterpret_cast<const float4*>(As + (ty + D * t) * kGramLd
+                                              + kk);
+    }
+#pragma unroll
+    for (int u = 0; u < T; ++u) {
+      b[u] = *reinterpret_cast<const float4*>(Bs + (tx + D * u) * kGramLd
+                                              + kk);
+    }
+#pragma unroll
+    for (int t = 0; t < T; ++t) {
+#pragma unroll
+      for (int u = 0; u < T; ++u) {
+        if (kTri && u < t) continue;
+        float s = acc[t][u];
+        s = fmaf(a[t].x, b[u].x, s);
+        s = fmaf(a[t].y, b[u].y, s);
+        s = fmaf(a[t].z, b[u].z, s);
+        s = fmaf(a[t].w, b[u].w, s);
+        acc[t][u] = s;
+      }
+    }
+  }
+}
+
+// grid (n_blocks x tiles, S): out (S, n_blocks, B, B), slice s of the m
+// columns [s per_slice, (s + 1) per_slice).  kOne: one tile covers G_j
+// (nt = 1), so every CTA is diagonal and only the pairs u >= t hold
+// registers.
+template <int D, int T, bool kVec, bool kOne>
+__global__ void __launch_bounds__(D * D)
+gram_kernel(const float* __restrict__ A_t, float* __restrict__ out, int B,
+            int m, int per_slice, int nt) {
+  constexpr int kTile = D * T;
+  constexpr int kThreads = D * D;
+  constexpr int kOp = kTile * kGramLd;          // floats of one operand
+  constexpr int V = kVec ? 4 : 1;
+  extern __shared__ float4 gram_smem4[];
+  float* ring = reinterpret_cast<float*>(gram_smem4);
+  const int tiles = tri_tiles(nt);
+  const int j = blockIdx.x / tiles;
+  int I = 0, J = 0;
+  if (!kOne) tri_tile(blockIdx.x - j * tiles, nt, I, J);
+  const bool diag = kOne || I == J;
+  const int stage = (kOne ? 1 : 2) * kOp;
+  const float* Aj = A_t + (size_t)j * B * m;
+  const int k_begin = blockIdx.y * per_slice;
+  const int k_end = min(m, k_begin + per_slice);
+  const int nk = (k_end - k_begin + kGramBK - 1) / kGramBK;
+  const int tx = threadIdx.x % D;
+  const int ty = threadIdx.x / D;
+
+  float acc[T][T];
+#pragma unroll
+  for (int t = 0; t < T; ++t) {
+#pragma unroll
+    for (int u = 0; u < T; ++u) acc[t][u] = 0.0f;
+  }
+  auto issue = [&](int c) {
+    float* st = ring + (c % kGramStages) * stage;
+    const int kc = k_begin + c * kGramBK;
+    gram_stage<kTile, kThreads, V>(st, Aj, I * kTile, B, m, kc, k_end);
+    if (!diag) {
+      gram_stage<kTile, kThreads, V>(st + kOp, Aj, J * kTile, B, m, kc,
+                                     k_end);
+    }
+  };
+#pragma unroll
+  for (int c = 0; c < kGramStages - 1; ++c) {
+    if (c < nk) issue(c);
+    cp_async_commit();
+  }
+  for (int c = 0; c < nk; ++c) {
+    cp_async_wait<kGramStages - 2>();
+    __syncthreads();                  // stage c in; stage c - 1 consumed
+    if (c + kGramStages - 1 < nk) issue(c + kGramStages - 1);
+    cp_async_commit();
+    const float* As = ring + (c % kGramStages) * stage;
+    if (diag) {
+      gram_mac<D, T, true>(As, As, tx, ty, acc);
+    } else {
+      gram_mac<D, T, false>(As, As + kOp, tx, ty, acc);
+    }
+  }
+  float* Gj = out + ((size_t)blockIdx.y * (gridDim.x / tiles) + j) * B * B;
+#pragma unroll
+  for (int t = 0; t < T; ++t) {
+#pragma unroll
+    for (int u = 0; u < T; ++u) {
+      if (diag && u < t) continue;
+      const int r = I * kTile + ty + D * t;
+      const int c = J * kTile + tx + D * u;
+      if (r >= B || c >= B) continue;
+      Gj[(size_t)r * B + c] = acc[t][u];
+      if (!diag || u > t) Gj[(size_t)c * B + r] = acc[t][u];
+    }
+  }
+}
+
+// G[e] = sum of the S partial Grams P[s][e], in slice order.
+__global__ void __launch_bounds__(256)
+gram_sum_kernel(const float* __restrict__ P, float* __restrict__ G,
+                size_t count, int S) {
+  for (size_t e = (size_t)blockIdx.x * 256 + threadIdx.x; e < count;
+       e += (size_t)gridDim.x * 256) {
+    float s = P[e];
+    for (int q = 1; q < S; ++q) s += P[(size_t)q * count + e];
+    G[e] = s;
+  }
+}
+
+__device__ __forceinline__ float power_start(int b, int B) {
+  return 1.0f + (0.01f * (float)b) / (float)B;
+}
+
+// Route 0: one CTA per block, G_j in shared memory for every step.
+__global__ void __launch_bounds__(kPowThreads)
+power_smem_kernel(const float* __restrict__ G, float* __restrict__ out,
+                  int B, int iters, float safety) {
+  extern __shared__ float4 pow_smem4[];
+  float* Gs = reinterpret_cast<float*>(pow_smem4);     // (B, B)
+  float* v = Gs + (size_t)B * B;                       // (B,)
+  float* w = v + B;                                    // (B,)
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const float* Gj = G + (size_t)blockIdx.x * B * B;
+  for (int e = tid; e < B * B; e += kPowThreads) Gs[e] = Gj[e];
+  for (int b = tid; b < B; b += kPowThreads) v[b] = power_start(b, B);
+  __syncthreads();
+  for (int it = 0;; ++it) {
+    for (int i = tid; i < B; i += kPowThreads) {        // w = G_j v
+      float s = 0.0f;
+      for (int k = 0; k < B; ++k) s = fmaf(Gs[k * B + i], v[k], s);
+      w[i] = s;
+    }
+    __syncthreads();
+    if (it == iters) break;
+    float s = 0.0f;                                     // every warp alike
+    for (int b = lane; b < B; b += 32) s = fmaf(w[b], w[b], s);
+    const float nrm = fmaxf(sqrtf(warp_sum(s)), 1e-30f);
+    for (int b = tid; b < B; b += kPowThreads) v[b] = w[b] / nrm;
+    __syncthreads();
+  }
+  if (tid < 32) {                     // v^T G_j v / v^T v
+    float num = 0.0f, den = 0.0f;
+    for (int b = lane; b < B; b += 32) {
+      num = fmaf(v[b], w[b], num);
+      den = fmaf(v[b], v[b], den);
+    }
+    num = warp_sum(num);
+    den = warp_sum(den);
+    if (lane == 0) out[blockIdx.x] = safety * num / fmaxf(den, 1e-30f);
+  }
+}
+
+// Route 1's v for block j into shared memory: the start vector when
+// w_prev is null, else w_prev / max(||w_prev||, 1e-30), the norm summed in
+// one fixed order (every CTA of the block, and power_finish_kernel, get
+// the same bits).
+__device__ void power_v(const float* __restrict__ w_prev, float* v,
+                        float* red, int B) {
+  const int tid = threadIdx.x;
+  if (w_prev == nullptr) {
+    for (int b = tid; b < B; b += kPowThreads) v[b] = power_start(b, B);
+    __syncthreads();
+    return;
+  }
+  float s = 0.0f;
+  for (int b = tid; b < B; b += kPowThreads) s = fmaf(w_prev[b], w_prev[b], s);
+  s = warp_sum(s);
+  if ((tid & 31) == 0) red[tid >> 5] = s;
+  __syncthreads();
+  float t = 0.0f;
+  for (int q = 0; q < kPowWarps; ++q) t += red[q];
+  const float nrm = fmaxf(sqrtf(t), 1e-30f);
+  for (int b = tid; b < B; b += kPowThreads) v[b] = w_prev[b] / nrm;
+  __syncthreads();
+}
+
+// Route 1, one step: w_out = G_j v for every block (grid: ceil(B / 32)
+// column groups, n_blocks).
+__global__ void __launch_bounds__(kPowThreads)
+power_step_kernel(const float* __restrict__ G,
+                  const float* __restrict__ w_prev, float* __restrict__ w_out,
+                  int B) {
+  extern __shared__ float4 step_smem4[];
+  float* v = reinterpret_cast<float*>(step_smem4);     // (B,)
+  __shared__ float red[kPowWarps];
+  __shared__ float part[kPowWarps][kStepCols];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int j = blockIdx.y;
+  power_v(w_prev == nullptr ? nullptr : w_prev + (size_t)j * B, v, red, B);
+  const int col = blockIdx.x * kStepCols + lane;
+  const float* Gj = G + (size_t)j * B * B;
+  float s = 0.0f;
+  if (col < B) {
+#pragma unroll 8
+    for (int k = warp; k < B; k += kPowWarps) {
+      s = fmaf(Gj[(size_t)k * B + col], v[k], s);
+    }
+  }
+  part[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && col < B) {
+    float t = part[0][lane];
+    for (int q = 1; q < kPowWarps; ++q) t += part[q][lane];
+    w_out[(size_t)j * B + col] = t;
+  }
+}
+
+// Route 1's Rayleigh quotient: v from the last step's input, u = G_j v
+// its output; out[j] = safety v^T u / max(v^T v, 1e-30).
+__global__ void __launch_bounds__(kPowThreads)
+power_finish_kernel(const float* __restrict__ w_prev,
+                    const float* __restrict__ u, float* __restrict__ out,
+                    int B, float safety) {
+  extern __shared__ float4 fin_smem4[];
+  float* v = reinterpret_cast<float*>(fin_smem4);      // (B,)
+  __shared__ float red[kPowWarps];
+  __shared__ float rn[kPowWarps], rd[kPowWarps];
+  const int tid = threadIdx.x;
+  const int j = blockIdx.x;
+  power_v(w_prev == nullptr ? nullptr : w_prev + (size_t)j * B, v, red, B);
+  const float* uj = u + (size_t)j * B;
+  float num = 0.0f, den = 0.0f;
+  for (int b = tid; b < B; b += kPowThreads) {
+    num = fmaf(v[b], uj[b], num);
+    den = fmaf(v[b], v[b], den);
+  }
+  num = warp_sum(num);
+  den = warp_sum(den);
+  if ((tid & 31) == 0) {
+    rn[tid >> 5] = num;
+    rd[tid >> 5] = den;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    float N = 0.0f, Dn = 0.0f;
+    for (int q = 0; q < kPowWarps; ++q) {
+      N += rn[q];
+      Dn += rd[q];
+    }
+    out[j] = safety * N / fmaxf(Dn, 1e-30f);
+  }
+}
+
+// The Gram instance for a tile edge: 80 (D 8, T 10) and 200 (D 20, T
+// 10), one tile per block; 128 (D 16, T 8), the upper triangle of tiles;
+// its threads per CTA in *threads; null for another edge.
+template <bool kVec>
+void* gram_instance(int tile, int* threads) {
+  switch (tile) {
+    case 80: *threads = 64; return (void*)gram_kernel<8, 10, kVec, true>;
+    case 200: *threads = 400; return (void*)gram_kernel<20, 10, kVec, true>;
+    case 128:
+      *threads = 256;
+      return (void*)gram_kernel<16, 8, kVec, false>;
+    default: return nullptr;
+  }
+}
+
+bool gram_one_tile(int tile) { return tile != 128; }
+
+size_t gram_smem(int tile) {
+  return sizeof(float) * kGramStages * (gram_one_tile(tile) ? 1 : 2) * tile
+         * kGramLd;
+}
+
+size_t power_smem(int B) {
+  return sizeof(float) * ((size_t)B * B + 2 * (size_t)B);
+}
 
 void* ax_kernel(bool vec) {
   return vec ? (void*)ax_partial_kernel<true>
@@ -441,16 +737,82 @@ int cot_neg_at_r_t(const float* A2, const float* r, const float* x, float* z,
   return (int)cudaGetLastError();
 }
 
-// out[j] = safety * ||A_j||_2^2 estimate, j < n_blocks.
-int cot_block_power_t(const float* A_t, float* out, int n_blocks, int B,
-                      int m, int iters, float safety, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * ((size_t)m + 2 * (size_t)B + 32);
+// out[j] = safety * ||A_j||_2^2 estimate, j < n_blocks (the K4 note).
+// G holds n_blocks B x B floats; partials S times as many when S > 1
+// (else it may be null); w 2 n_blocks B floats on route 1 (else null).
+// tile: 80, 200 or 128; the m columns in S slices of per_slice (a
+// multiple of 32), none empty; vec: 16-byte copies, which need m % 4 ==
+// 0 and A_t 16-byte aligned.
+int cot_block_power_t(const float* A_t, float* out, float* G,
+                      float* partials, float* w, int n_blocks, int B, int m,
+                      int tile, int S, int per_slice, int route, int vec,
+                      int iters, float safety, cudaStream_t stream) {
+  int threads = 0;
+  void* gram = vec ? gram_instance<true>(tile, &threads)
+                   : gram_instance<false>(tile, &threads);
+  const int nt = B > 0 && tile > 0 ? (B + tile - 1) / tile : 0;
+  if (gram == nullptr || (gram_one_tile(tile) && nt != 1) || n_blocks < 1
+      || B < 1 || m < 1 || iters < 0
+      || S < 1 || S > 65535 || per_slice < 1 || per_slice % kGramBK != 0
+      || (long long)per_slice * (S - 1) >= m
+      || (long long)per_slice * S < m || (S > 1 && partials == nullptr)
+      || (long long)n_blocks * tri_tiles(nt) > 0x7fffffffLL
+      || (route == 0 && power_smem(B) > kPowMaxSmem)
+      || (route == 1 && (w == nullptr || n_blocks > 65535))
+      || (route != 0 && route != 1)
+      || (vec && (m % 4 != 0 || !aligned16(A_t)))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = gram_smem(tile);
   cudaError_t err = cudaFuncSetAttribute(
-      block_power_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      gram, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  block_power_kernel<<<n_blocks, kPowThreads, smem, stream>>>(
-      A_t, out, B, m, iters, safety);
+  float* g_out = S > 1 ? partials : G;
+  void* args[] = {(void*)&A_t, (void*)&g_out, (void*)&B, (void*)&m,
+                  (void*)&per_slice, (void*)&nt};
+  err = cudaLaunchKernel(gram, dim3(n_blocks * tri_tiles(nt), S),
+                         dim3(threads), args, smem, stream);
+  if (err != cudaSuccess) return (int)err;
+  const size_t count = (size_t)n_blocks * B * B;
+  if (S > 1) {
+    const size_t grid = (count + 255) / 256;
+    gram_sum_kernel<<<(unsigned)(grid < 4096 ? grid : 4096), 256, 0,
+                      stream>>>(partials, G, count, S);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (route == 0) {
+    const size_t psmem = power_smem(B);
+    err = cudaFuncSetAttribute(power_smem_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)psmem);
+    if (err != cudaSuccess) return (int)err;
+    power_smem_kernel<<<n_blocks, kPowThreads, psmem, stream>>>(
+        G, out, B, iters, safety);
+    return (int)cudaGetLastError();
+  }
+  const size_t vsmem = sizeof(float) * (size_t)B;
+  err = cudaFuncSetAttribute(power_step_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)vsmem);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(power_finish_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)vsmem);
+  }
+  if (err != cudaSuccess) return (int)err;
+  const dim3 step_grid((B + kStepCols - 1) / kStepCols, n_blocks);
+  float* w_buf[2] = {w, w + (size_t)n_blocks * B};
+  for (int it = 0; it <= iters; ++it) {
+    const float* w_prev = it == 0 ? nullptr : w_buf[(it - 1) & 1];
+    power_step_kernel<<<step_grid, kPowThreads, vsmem, stream>>>(
+        G, w_prev, w_buf[it & 1], B);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  power_finish_kernel<<<n_blocks, kPowThreads, vsmem, stream>>>(
+      iters == 0 ? nullptr : w_buf[(iters - 1) & 1], w_buf[iters & 1], out,
+      B, safety);
   return (int)cudaGetLastError();
 }
 

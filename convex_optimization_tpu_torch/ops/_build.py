@@ -122,7 +122,8 @@ def _declare(lib) -> None:
                                      _I, _VP]
     lib.cot_neg_at_r_t.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I,
                                    _I, _I, _I, _Fl, _VP]
-    lib.cot_block_power_t.argtypes = [_VP, _VP, _I, _I, _I, _I, _Fl, _VP]
+    lib.cot_block_power_t.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I, _I,
+                                      _I, _I, _I, _I, _I, _I, _Fl, _VP]
     lib.cot_batch_sweep_check.argtypes = [_I, _I, _I, _I, _I, _I, _I, _I,
                                           _I, _I, ctypes.POINTER(_I)]
     lib.cot_batch_sweep_t.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _VP,

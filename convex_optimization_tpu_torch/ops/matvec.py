@@ -242,20 +242,82 @@ def block_power_t_plain(A_t: torch.Tensor, *, iters: int = 48,
     return safety * num / den
 
 
+#: K4's ring stage's columns (csrc/matvec.cu, K4 note), the columns a
+#: slice keeps at least when the m columns are split, and the scratch a
+#: call may hold at once
+K4_STAGE_COLS = 32
+K4_MIN_SLICE = 2048
+K4_SCRATCH_BYTES = 2 << 30
+#: shared memory a CTA may use (route "smem" holds G_j, v and w there)
+K4_MAX_SMEM_BYTES = 227 * 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class PowerPlan:
+    """K4's launch at (n_blocks, B, m) on one card."""
+    tile: int             # Gram tile edge: 80, 200 or 128
+    slices: int           # S: slices of the m columns (grid.y)
+    per_slice: int        # columns per slice, a multiple of 32
+    route: str            # "smem": G_j in shared memory for every step;
+                          # "global": G in global memory, a launch a step
+    chunk: int            # blocks per call, so that the scratch stays small
+
+
+def power_tiling(nb: int, B: int, m: int, sms: int) -> PowerPlan:
+    """K4's plan at (nb, B, m) on a card of ``sms`` SMs.  The tile: 80
+    for B <= 80 and 200 for B <= 200 (one tile per block), else the upper
+    triangle of 128-tiles.  The m columns stay whole unless the tiles of
+    all blocks number fewer than two per SM; then they are cut into
+    slices of at least K4_MIN_SLICE columns, up to two CTAs per SM.  Route
+    "smem" where G_j, v and w fit K4_MAX_SMEM_BYTES, else "global".
+    Blocks go in chunks whose scratch (G, the slices' partial Grams, route
+    "global"'s two w) stays within K4_SCRATCH_BYTES."""
+    tile = 80 if B <= 80 else 200 if B <= 200 else 128
+    nt = -(-B // tile)
+    ctas = nb * nt * (nt + 1) // 2
+    S = 1
+    if ctas < 2 * sms:
+        S = max(1, min(-(-2 * sms // ctas), m // K4_MIN_SLICE))
+    per = -(-(-(-m // S)) // K4_STAGE_COLS) * K4_STAGE_COLS
+    S = -(-m // per)
+    route = "smem" if 4 * (B * B + 2 * B) <= K4_MAX_SMEM_BYTES else "global"
+    per_block = 4 * B * B * (1 + (S if S > 1 else 0)) \
+        + (8 * B if route == "global" else 0)
+    chunk = max(1, min(nb, K4_SCRATCH_BYTES // per_block, 65535))
+    return PowerPlan(tile, S, per, route, chunk)
+
+
 def block_power_t(A_t: torch.Tensor, *, iters: int = 48,
                   safety: float = 1.02) -> torch.Tensor:
     """Per-block ||A_j||_2^2 estimates (n_blocks,): ``iters`` power
     iterations from the tilted ones vector, then the Rayleigh quotient
-    times ``safety``."""
+    times ``safety``.  On the card, K4 forms each block's Gram matrix and
+    iterates on it (``power_tiling``)."""
     if not _on_cuda(A_t):
         return block_power_t_plain(A_t, iters=iters, safety=safety)
     _check("A_t", A_t, A_t.shape, A_t.device)
     nb, B, m = A_t.shape
-    out = torch.empty((nb,), dtype=torch.float32, device=A_t.device)
-    err = _build.load().cot_block_power_t(
-        A_t.data_ptr(), out.data_ptr(), nb, B, m, int(iters), float(safety),
-        _build.stream_ptr(A_t.device))
-    _build.check(err, "block_power_t")
+    sms = torch.cuda.get_device_properties(A_t.device).multi_processor_count
+    plan = power_tiling(nb, B, m, sms)
+    dev = A_t.device
+    out = torch.empty((nb,), dtype=torch.float32, device=dev)
+    c = plan.chunk
+    G = torch.empty((c, B, B), dtype=torch.float32, device=dev)
+    partials = (torch.empty((plan.slices, c, B, B), dtype=torch.float32,
+                            device=dev) if plan.slices > 1 else None)
+    w = (torch.empty((2, c, B), dtype=torch.float32, device=dev)
+         if plan.route == "global" else None)
+    vec = int(m % 4 == 0 and _aligned(A_t))
+    lib = _build.load()
+    for j0 in range(0, nb, c):
+        err = lib.cot_block_power_t(
+            A_t[j0].data_ptr(), out[j0:].data_ptr(), G.data_ptr(),
+            None if partials is None else partials.data_ptr(),
+            None if w is None else w.data_ptr(), min(c, nb - j0), B, m,
+            plan.tile, plan.slices, plan.per_slice,
+            int(plan.route == "global"), vec, int(iters), float(safety),
+            _build.stream_ptr(dev))
+        _build.check(err, "block_power_t")
     _build.launches["block_power_t"] += 1
     return out
 

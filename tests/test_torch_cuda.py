@@ -172,12 +172,67 @@ def test_matvec_kernels_on_a_slab_view(cuda):
                        neg_at_r_t(copy, r, x, 0.0))
 
 
-@pytest.mark.parametrize("m,n,B", SHAPES)
+#: K4's edges beside SHAPES: B = 200 (one 200-tile, G_j in shared
+#: memory), B past the shared-memory route (300; 2000 at a small m: the
+#: triangle of 128-tiles), a ragged m on both, and one block (the m
+#: columns split into slices: nb = 1 at m = 100 000, and at a ragged m)
+POWER_SHAPES = SHAPES + [(1000, 200 * 4, 200), (600, 300 * 3, 300),
+                         (256, 2000 * 2, 2000), (1003, 200 * 3, 200),
+                         (603, 300 * 2, 300), (100_000, 80, 80),
+                         (40_001, 200, 200)]
+
+
+@pytest.mark.parametrize("m,n,B", POWER_SHAPES)
 def test_block_power_kernel_matches_plain(cuda, m, n, B):
     p, _ = _data(m, n, B, cuda)
     est = block_power_t(p.A_t)
     ref = block_power_t_plain(p.A_t)
     torch.testing.assert_close(est, ref, rtol=1e-4, atol=0.0)
+
+
+@pytest.mark.parametrize("m,n,B", [(256, 1024, 32), (10_000, 80 * 16, 80),
+                                   (1000, 200 * 4, 200), (600, 300 * 3, 300),
+                                   (100_000, 80, 80)])
+def test_block_power_kernel_is_deterministic(cuda, m, n, B):
+    """No atomics, sums in a fixed order (the split-m slices added in
+    slice order): two launches give the same bits."""
+    p, _ = _data(m, n, B, cuda)
+    assert torch.equal(block_power_t(p.A_t), block_power_t(p.A_t))
+
+
+@pytest.mark.parametrize("m,n,B", [(10_000, 80 * 16, 80),
+                                   (1000, 200 * 4, 200), (600, 300 * 3, 300)])
+def test_block_power_kernel_on_an_unaligned_view(cuda, m, n, B):
+    """A_t as a contiguous view 4 bytes past a 16-byte boundary: the 4-byte
+    copies run and agree with the plain version."""
+    p, _ = _data(m, n, B, cuda)
+    buf = torch.empty(n * m + 1, device=cuda)
+    A_u = buf[1:].view(n // B, B, m)
+    A_u.copy_(p.A_t)
+    assert A_u.data_ptr() % 16 != 0 and A_u.is_contiguous()
+    torch.testing.assert_close(block_power_t(A_u),
+                               block_power_t_plain(p.A_t), rtol=1e-4,
+                               atol=0.0)
+
+
+@pytest.mark.parametrize("m,B", [(1000, 80), (1000, 200), (603, 300)])
+def test_block_power_kernel_zero_and_rank_one_blocks(cuda, m, B):
+    """An all-zero block gives 0 (the 1e-30 clamps; no NaN), and a block
+    whose B rows all equal one m-vector a gives 1.02 B ||a||^2 (its Gram
+    is ||a||^2 times the all-ones matrix) within 1e-5 relative; a random
+    block beside them still matches the plain version."""
+    rng = np.random.default_rng(B)
+    a = rng.standard_normal(m).astype(np.float32)
+    A_t = np.zeros((3, B, m), np.float32)
+    A_t[1] = a
+    A_t[2] = rng.standard_normal((B, m)).astype(np.float32) / np.sqrt(m)
+    A_t = torch.as_tensor(A_t, device=cuda)
+    est = block_power_t(A_t)
+    assert float(est[0]) == 0.0
+    want = 1.02 * B * float(np.dot(a.astype(np.float64), a))
+    assert abs(float(est[1]) - want) <= 1e-5 * want
+    torch.testing.assert_close(est[2], block_power_t_plain(A_t[2:])[0],
+                               rtol=1e-4, atol=0.0)
 
 
 @pytest.mark.parametrize("kind", ["l1", "nonneg_l1"])

@@ -59,12 +59,15 @@ from convex_optimization_tpu_torch.solvers.bcd import pick_sweep
 from convex_optimization_tpu_torch.utils import native
 from convex_optimization_tpu_torch.ops.matvec import (
     K3_MAX_COLS,
+    K4_MIN_SLICE,
+    K4_SCRATCH_BYTES,
     ax_minus_b_t,
     block_power_t,
     k3_chunking,
     k3_depth,
     matvec_tiling,
     neg_at_r_t,
+    power_tiling,
     spectral_norm_sq_t,
     witness_gamma,
 )
@@ -242,6 +245,76 @@ def test_block_power_plain_matches_jax_kernel(m, n, B):
     est = block_power_t(_t(A_t_np)).numpy()
     ref = np.asarray(j_block_power_t(jnp.asarray(A_t_np), interpret=True))
     np.testing.assert_allclose(est, ref, rtol=1e-4)
+
+
+def _gram_power(A_t, iters=48, safety=1.02):
+    """K4's formulation on the card, in plain torch: G_j = A_t[j] A_t[j]^T,
+    the TPU kernel's iterates on G_j (w = G_j v, v = w / max(||w||,
+    1e-30)), then v^T G_j v / max(v^T v, 1e-30) times ``safety``."""
+    nb, B, m = A_t.shape
+    G = torch.bmm(A_t, A_t.transpose(1, 2))
+    b = torch.arange(B, dtype=torch.float32)
+    v = (1.0 + (0.01 * b) / B).expand(nb, B).unsqueeze(2)
+    for _ in range(iters):
+        w = torch.bmm(G, v)
+        v = w / torch.clamp(torch.linalg.vector_norm(w, dim=1, keepdim=True),
+                            min=1e-30)
+    num = torch.sum(v * torch.bmm(G, v), dim=(1, 2))
+    den = torch.clamp(torch.sum(v * v, dim=(1, 2)), min=1e-30)
+    return safety * num / den
+
+
+@pytest.mark.parametrize("B", [32, 40, 80, 200])
+def test_gram_power_matches_jax_kernel(B):
+    """The reassociation K4 runs on the card (iterate on the Gram matrix,
+    not on A_j twice per step) computes the JAX kernel's function: rtol
+    1e-4 against ``block_power_t`` in interpret mode, with one all-zero
+    block, which both give as 0."""
+    m, nb = 120, 3
+    A, _, _, _ = _arrays(m, nb * B, seed=B + 7)
+    A_t_np = np.ascontiguousarray(A.T).reshape(nb, B, m)
+    A_t_np[1] = 0.0
+    est = _gram_power(_t(A_t_np)).numpy()
+    ref = np.asarray(j_block_power_t(jnp.asarray(A_t_np), interpret=True))
+    assert est[1] == 0.0 and ref[1] == 0.0
+    np.testing.assert_allclose(est, ref, rtol=1e-4)
+
+
+@pytest.mark.parametrize("nb,B,m,tile,S,route", [
+    (1250, 80, 10_000, 80, 1, "smem"),       # the headline
+    (625, 80, 5000, 80, 1, "smem"),          # config 2, a rank's slab
+    (1000, 200, 20_000, 200, 1, "smem"),     # config 4, K1's route
+    (100, 2000, 20_000, 128, 1, "global"),   # config 4, K9's route
+    (1, 80, 100_000, 80, 48, "smem"),        # one block: the m split
+    (1, 200, 40_001, 200, 19, "smem"),
+    (20, 40, 200, 80, 1, "smem"),            # too narrow to split
+    (3, 240, 1000, 128, 1, "smem"),          # the widest G_j on chip
+    (3, 241, 1000, 128, 1, "global"),
+])
+def test_power_tiling(nb, B, m, tile, S, route):
+    """K4's plan: the tile by B, the m columns split only where the tiles
+    leave the card idle (slices of >= 2048 columns, a multiple of 32,
+    none empty), G_j on chip where it fits 227 KB with v and w, and the
+    scratch of a call within K4_SCRATCH_BYTES."""
+    plan = power_tiling(nb, B, m, H100_SMS)
+    assert (plan.tile, plan.slices, plan.route) == (tile, S, route)
+    assert plan.per_slice % 32 == 0
+    assert (plan.slices - 1) * plan.per_slice < m <= \
+        plan.slices * plan.per_slice
+    if plan.slices > 1:
+        assert plan.per_slice >= K4_MIN_SLICE
+    assert plan.chunk == nb
+    scratch = 4 * plan.chunk * B * B * (1 + (S if S > 1 else 0))
+    assert scratch <= K4_SCRATCH_BYTES
+
+
+def test_power_tiling_chunks_what_does_not_fit():
+    """Blocks whose Grams would pass K4_SCRATCH_BYTES go in chunks."""
+    plan = power_tiling(400, 4000, 20_000, H100_SMS)
+    assert plan.route == "global" and plan.slices == 1
+    assert plan.chunk == K4_SCRATCH_BYTES // (4 * 4000 * 4000 + 8 * 4000)
+    assert 4 * plan.chunk * 4000 * (4000 + 2) <= K4_SCRATCH_BYTES < 400 * \
+        4 * 4000 * 4000
 
 
 def test_spectral_norm_sq_t_matches_jax():
