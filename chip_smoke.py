@@ -143,6 +143,9 @@ C4_ROUTES = (("k1_group", 128, 200, "sweep_t"),       # name, block_size, B,
 C4_PATH = dict(tol=1e-6, max_iters=2000, gap_every=10, stall_checks=10)
 C4_PATH_LEN, C4_LAM_MIN = 10, 0.1
 GROUP_B = 200                # config 4's K1 block (pick_block_size_t)
+# K9 where the ring keeps most of a CTA's slab: 32 blocks of the tall
+# shape (250 x 80 x 100 000, scripts/time_sweep.py tall_k9), 1 GB
+TALL_K9 = (32, 80, 100_000)
 # the small group CV, card against CPU: small_group_reference's instance
 GROUP_CV = dict(tol=1e-5, max_iters=2000, gap_every=10, stall_checks=10)
 GROUP_CV_LEN = 5
@@ -259,6 +262,18 @@ def sweep_work(m: int, n: int, n_blocks: int) -> tuple[int, int]:
     """(bytes, flops) of one sweep (K1 or K9): A once, x, r, the steps and
     the keep mask in, x and r out; two multiply-adds per element of A."""
     return 4 * m * n + 4 * (2 * n + 2 * m + n_blocks) + n, 4 * m * n
+
+
+def tiled_design_work(m: int, n: int, n_blocks: int, chunk: int,
+                      kept: int) -> tuple[int, int]:
+    """(bytes, flops) that K9's plan must move from memory in one sweep:
+    ``sweep_work``'s, plus A read again less what the ring keeps (the last
+    ``kept`` chunks of ``chunk`` coordinates of each block: B - (N - kept)
+    chunk coordinates, N = ceil(B / chunk)); L2 hits get no credit."""
+    nbytes, flops = sweep_work(m, n, n_blocks)
+    B = n // n_blocks
+    kept_b = max(0, B - (-(-B // chunk) - kept) * chunk)
+    return nbytes + 4 * m * n_blocks * (B - kept_b), flops
 
 
 def compare_matvecs(A_t, b, x_probe, label: str, stats: dict, timed: bool,
@@ -467,6 +482,32 @@ def k1_plan(device, B: int, m: int) -> dict:
 
     plan = k1.sweep_plan(device, B, m)
     return dataclasses.asdict(plan) | {"smem_bytes": plan.smem_bytes}
+
+
+def k9_plan(device, B: int, m: int) -> dict:
+    """K9's launch plan at (B, m), as a JSON line shows it."""
+    import dataclasses
+
+    from convex_optimization_tpu_torch.ops import bcd_sweep_tiled as k9
+
+    plan = k9.tiled_plan(device, B, m)
+    return dataclasses.asdict(plan) | {"n_chunks": plan.n_chunks,
+                                       "smem_bytes": plan.smem_bytes}
+
+
+def k9_bounds(m: int, n: int, nb: int, plan: dict | None,
+              extra: int = 0) -> dict:
+    """K9's bounds at one shape, in ms at 3.35 TB/s: A read once (the
+    kernels line's bound), A read twice (the first design's reads) and,
+    given a ``plan``, its design bound (``tiled_design_work``); ``extra``
+    bytes (the group weights) on each."""
+    one = sweep_work(m, n, nb)[0] + extra
+    out = {"bound_ms": 1e3 * one / HBM_BYTES_PER_S,
+           "two_reads_ms": 1e3 * (one + 4 * m * n) / HBM_BYTES_PER_S}
+    if plan is not None:
+        design = tiled_design_work(m, n, nb, plan["chunk"], plan["kept"])[0]
+        out["design_bound_ms"] = 1e3 * (design + extra) / HBM_BYTES_PER_S
+    return out
 
 
 def compare_batch_matvecs(A_t, b, L: int, label: str, stats: dict, gen,
@@ -976,9 +1017,10 @@ def compare_group_sweeps(A_rows, b, lam1: float, gsize: int, weights,
                          timed: bool) -> dict:
     """Group K1 and K9 against their plain versions on one (n, m) A_rows,
     each at its own block width (``widths``: kernel name -> B): one sweep
-    from x = 0, r = -b with group_l2 over groups of ``gsize``.
-    Tolerances as K1's (1e-5, 1e-4 past 64 blocks).  Returns each
-    kernel's and plain version's ms and bound when ``timed``."""
+    from x = 0, r = -b with group_l2 over groups of ``gsize``, launched
+    twice (torch.equal).  Tolerances as K1's (1e-5, 1e-4 past 64 blocks).
+    Returns each kernel's and plain version's ms and bound when ``timed``
+    (K9's with its plan, its two-read time and its design bound)."""
     import torch
 
     from convex_optimization_tpu_torch.models.penalties import group_l2
@@ -999,6 +1041,10 @@ def compare_group_sweeps(A_rows, b, lam1: float, gsize: int, weights,
         steps = k1.block_steps(mv.block_power_t_plain(A_t), 0.0)
         args = (A_t, zeros_n, -b, steps, keep, pen, 0.0)
         xk, rk = kernel(*args)
+        xk2, rk2 = kernel(*args)
+        require(torch.equal(xk, xk2) and torch.equal(rk, rk2),
+                f"{label} {name} differs run to run")
+        del xk2, rk2
         xp, rp = plain(*args)
         tol = 1e-4 if nb > 64 else 1e-5
         ex = float((xk - xp).abs().max())
@@ -1022,9 +1068,62 @@ def compare_group_sweeps(A_rows, b, lam1: float, gsize: int, weights,
             out[name]["us_per_block"] = 1e3 * out[name]["ms"] / nb
             if name == "sweep_t":
                 out[name]["plan"] = k1_plan(A_rows.device, B, m)
+            else:
+                plan = k9_plan(A_rows.device, B, m)
+                out[name]["plan"] = plan
+                out[name] |= k9_bounds(m, n, nb, plan)
     torch.cuda.synchronize()
     log(f"# group sweeps vs plain [{label}] n={n} m={m}: ok {checked}")
     return out
+
+
+def compare_tall_k9(device, stats: dict, gpu: str, power: str) -> None:
+    """K9 where the ring keeps most of a CTA's slab: a TALL_K9 slice of the
+    tall shape (B = 80, m = 100 000: 243 KB a CTA, 1 GB in all), random
+    unit columns, l1 at 0.1 lam_max with a partly-zero keep mask, one sweep
+    from the plain version's first sweep from x = 0 (so x and dx are both
+    nonzero), launched twice (torch.equal) and held to the plain version
+    as K1 is after one sweep (x to 1e-5 of max(1, |x|), r to 1e-5 of ||r||);
+    timed, with its plan and bounds (one JSON line)."""
+    import torch
+
+    import convex_optimization_tpu_torch as cot
+    from convex_optimization_tpu_torch.ops import bcd_sweep as k1
+    from convex_optimization_tpu_torch.ops import bcd_sweep_tiled as k9
+    from convex_optimization_tpu_torch.ops import matvec as mv
+
+    nb, B, m = TALL_K9
+    n = nb * B
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    A_t = torch.randn(nb, B, m, generator=gen, device=device)
+    A_t /= torch.linalg.vector_norm(A_t, dim=2, keepdim=True)
+    b = torch.randn(m, generator=gen, device=device)
+    zeros_n = torch.zeros(n, device=device)
+    pen = cot.l1(0.1 * float(mv.neg_at_r_t_plain(A_t, b, zeros_n, 0.0)
+                             .abs().max()))
+    keep = torch.rand(n, generator=gen, device=device) > 0.1
+    steps = k1.block_steps(mv.block_power_t_plain(A_t), 0.0)
+    x0, r0 = k9.sweep_tiled_t_plain(A_t, zeros_n, -b, steps, keep, pen, 0.0)
+    args = (A_t, x0, r0, steps, keep, pen, 0.0)
+    xk, rk = k9.sweep_tiled_t(*args)
+    xk2, rk2 = k9.sweep_tiled_t(*args)
+    require(torch.equal(xk, xk2) and torch.equal(rk, rk2),
+            "tall K9 differs run to run")
+    xp, rp = k9.sweep_tiled_t_plain(*args)
+    require(float((xp - x0).abs().max()) > 0, "tall K9: x did not move")
+    err = sweep_err("tall", "sweep_tiled_t", xk, rk, xp, rp, 1e-5)
+    require(bool((xk[~keep] == 0).all()), "tall K9 kept a masked x")
+    record(stats, "sweep_tiled_t", err)
+    ms = time_ms(lambda: k9.sweep_tiled_t(*args), 10)
+    plan = k9_plan(device, B, m)
+    print(json.dumps({
+        "metric": f"k9_tall_sweep_ms_A_t_{nb}x{B}x{m}", "ms": ms,
+        "us_per_block": 1e3 * ms / nb,
+        "plain_ms": time_ms(lambda: k9.sweep_tiled_t_plain(*args), 1),
+        **k9_bounds(m, n, nb, plan), "max_abs_err": err, "tol": 1e-5,
+        "plan": plan, "gpu": gpu, "power_limit": power}), flush=True)
+    del A_t
+    torch.cuda.empty_cache()
 
 
 def small_group_reference(device) -> None:
@@ -1303,8 +1402,8 @@ def config4(device, gpu: str, power: str, stats: dict) -> dict:
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     print(json.dumps({
         "metric": f"config4_group_sweep_ms_{m}x{n}",
-        "sweeps": {name: {k: v for k, v in t.items() if k != "work"}
-                   | {"bound_ms": 1e3 * t["work"][0] / HBM_BYTES_PER_S}
+        "sweeps": {name: {"bound_ms": 1e3 * t["work"][0] / HBM_BYTES_PER_S}
+                   | {k: v for k, v in t.items() if k != "work"}
                    for name, t in timed.items()},
         "gpu": gpu, "power_limit": power}), flush=True)
 
@@ -1344,8 +1443,13 @@ def config4(device, gpu: str, power: str, stats: dict) -> dict:
                 f"config4 {route}: f64 certificate {pr.rel_gap}")
         ratio = witness_bound_check(problem, pr.x, b_np)
         groups = int((np.abs(pr.x).reshape(ng, -1).sum(axis=1) > 0).sum())
-        passes = (1.0 if kernel == "sweep_t" else 2.0) \
-            + 2.0 / C4_SOLVE["gap_every"]
+        # K9 reads A again less the chunks its ring keeps
+        passes = 1.0 + 2.0 / C4_SOLVE["gap_every"]
+        if kernel == "sweep_tiled_t":
+            plan = k9_plan(device, B, m)
+            passes += (tiled_design_work(m, n, n // B, plan["chunk"],
+                                         plan["kept"])[0]
+                       - sweep_work(m, n, n // B)[0]) / (4.0 * m * n)
         sweeps = res.iterations
         print(json.dumps({
             "metric": f"config4_time_to_certified_1e-06_rel_gap_group_"
@@ -2086,6 +2190,7 @@ def main() -> None:
                         False, card2)
     small_group_reference(device)
     small_group_cv(device)
+    compare_tall_k9(device, stats, gpu_name, power_limit)
     k9_launches = config4(device, gpu_name, power_limit, stats)
     torch.cuda.empty_cache()
 

@@ -130,35 +130,6 @@ __host__ __device__ inline Layout layout(int B, int rows, int ld, int P,
   return o;
 }
 
-// Phase 1 of one unit: (acc0, acc1) = the sums over the CTA's row chunks
-// k = s, s + S1, ... < nk (of 4 floats when VEC) of tile rows a0 and a1
-// against r.
-template <bool VEC>
-__device__ __forceinline__ void dot_rows(const float* a0, const float* a1,
-                                         const float* r_s, int nk, int s,
-                                         int S1, float& acc0, float& acc1) {
-  acc0 = acc1 = 0.0f;
-  for (int k = s; k < nk; k += S1) {
-    if constexpr (VEC) {
-      const float4 t0 = *reinterpret_cast<const float4*>(a0 + 4 * k);
-      const float4 t1 = *reinterpret_cast<const float4*>(a1 + 4 * k);
-      const float4 r = *reinterpret_cast<const float4*>(r_s + 4 * k);
-      acc0 = fmaf(t0.x, r.x, acc0);
-      acc1 = fmaf(t1.x, r.x, acc1);
-      acc0 = fmaf(t0.y, r.y, acc0);
-      acc1 = fmaf(t1.y, r.y, acc1);
-      acc0 = fmaf(t0.z, r.z, acc0);
-      acc1 = fmaf(t1.z, r.z, acc1);
-      acc0 = fmaf(t0.w, r.w, acc0);
-      acc1 = fmaf(t1.w, r.w, acc1);
-    } else {
-      const float r = r_s[k];
-      acc0 = fmaf(a0[k], r, acc0);
-      acc1 = fmaf(a1[k], r, acc1);
-    }
-  }
-}
-
 // Phase 2 of one unit: acc[ii] = sum over b in [b0, b1) of
 // tile[b][W q + ii] dx[b]; `sl` is b0's ring slot.
 template <bool VEC>

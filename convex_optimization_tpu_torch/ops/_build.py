@@ -113,10 +113,12 @@ def _declare(lib) -> None:
     lib.cot_sweep_t.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
                                 _VP, _VP, _I, _I, _I, _I, _Fl, _Fl, _I, _I,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _VP]
-    lib.cot_sweep_tiled_plan.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+    lib.cot_sweep_tiled_check.argtypes = [_I, _I, _I, _I, _I, _I, _I, _I,
+                                          ctypes.POINTER(_I)]
     lib.cot_sweep_tiled_t.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _VP,
-                                      _VP, _VP, _I, _I, _I, _I, _Fl, _Fl,
-                                      _I, _I, _I, _I, _I, _VP]
+                                      _VP, _VP, _VP, _I, _I, _I, _I, _Fl,
+                                      _Fl, _I, _I, _I, _I, _I, _I, _I, _I,
+                                      _I, _I, _I, _VP]
     lib.cot_matvec_occupancy.argtypes = [_I, ctypes.POINTER(_I)]
     lib.cot_ax_minus_b_t.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I, _I,
                                      _I, _VP]
@@ -142,7 +144,7 @@ def _declare(lib) -> None:
     lib.cot_error_string.argtypes = [_I]
     lib.cot_error_string.restype = ctypes.c_char_p
     for fn in (lib.cot_sweep_check, lib.cot_sweep_t, lib.cot_sweep_slab_t,
-               lib.cot_sweep_tiled_plan, lib.cot_sweep_tiled_t,
+               lib.cot_sweep_tiled_check, lib.cot_sweep_tiled_t,
                lib.cot_matvec_occupancy, lib.cot_ax_minus_b_t,
                lib.cot_neg_at_r_t, lib.cot_block_power_t,
                lib.cot_batch_sweep_check, lib.cot_batch_sweep_t,

@@ -27,11 +27,14 @@ from convex_optimization_tpu_torch.ops.bcd_sweep import (
 )
 from convex_optimization_tpu_torch.ops.bcd_sweep_ref import bcd_sweep_ref
 from convex_optimization_tpu_torch.ops.bcd_sweep_tiled import (
-    copy_width,
     sweep_tiled_t,
     tiled_plan,
 )
-from convex_optimization_tpu_torch.ops.matvec import ax_minus_b_t, neg_at_r_t
+from convex_optimization_tpu_torch.ops.matvec import (
+    _aligned,
+    ax_minus_b_t,
+    neg_at_r_t,
+)
 from convex_optimization_tpu_torch.solvers.common import (
     SolverConfig,
     SolveState,
@@ -84,7 +87,7 @@ def prepare_sweep(A_t: torch.Tensor) -> None:
     if pick_sweep(A_t.device, B, m) is sweep_t:
         sweep_plan(A_t.device, B, m)
     else:
-        tiled_plan(A_t.device, B, m, copy_width(A_t))
+        tiled_plan(A_t.device, B, m, _aligned(A_t))
 
 
 def bcd(problem: Problem, block_L: torch.Tensor, state: SolveState,

@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Write a copy of the port with one design choice of K1 and K8
-(`csrc/sweep.cu` and its plan, `ops/bcd_sweep.py`) swapped for another, so
-that `scripts/time_sweep.py --root DEST` and `scripts/sharded_counts.py
---root DEST` measure it beside the shipped kernel in one chip call.
+(`csrc/sweep.cu` and its plan, `ops/bcd_sweep.py`) or of K9
+(`csrc/sweep_tiled.cu` and its plan, `ops/bcd_sweep_tiled.py`) swapped for
+another, so that `scripts/time_sweep.py --root DEST` and
+`scripts/sharded_counts.py --root DEST` measure it beside the shipped
+kernel in one chip call.
 
     python3 scripts/sweep_variant.py NAME DEST
 
@@ -22,6 +24,14 @@ Variants (NAME):
   payload_warp0    K8's running sums kept by warp 0 of CTA 0, which holds
                    phase-2 units, in place of its last warp, which holds
                    none at the rank slab
+  k9_forward       K9's phase 2 in phase 1's order with nothing kept (every
+                   chunk copied twice, as the first design did)
+  k9_cp_async16    K9's float4 chunks by 16-byte cp.async from the producer
+                   warp (each lane's first copy and stride worked out once
+                   a chunk) in place of one bulk copy (1-D TMA) a run
+  k9_l2_hints      K9's phase-1 bulk copies with an L2 evict_last policy
+                   and phase 2's with evict_first
+  k9_chunk_32k     K9's chunks of about 32 KB in place of 64
 
 DEST (e.g. build/variant_grid_sync) receives this checkout's
 `convex_optimization_tpu_torch/` with the variant's text replacements;
@@ -39,6 +49,8 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = "convex_optimization_tpu_torch"
 CU = "csrc/sweep.cu"
 PLAN = "ops/bcd_sweep.py"
+TCU = "csrc/sweep_tiled.cu"
+TPLAN = "ops/bcd_sweep_tiled.py"
 
 #: name -> [(file in the package, text, its replacement)]
 VARIANTS = {
@@ -90,6 +102,43 @@ VARIANTS = {
         (CU, "constexpr int kPayWarp = kWarps - 1;",
          "constexpr int kPayWarp = 0;"),
     ],
+    "k9_forward": [
+        (TPLAN, "min(n_chunks, slots - 1)", "0"),
+        (TCU, "const int k = l < N ? l : 2 * N - K - 1 - l;",
+         "const int k = l < N ? l : l - N;"),
+        (TCU, "const int k = N - 1 - p;", "const int k = p;"),
+    ],
+    "k9_cp_async16": [
+        (TCU, "      mbar_init(full + s, 1);\n",
+         "      mbar_init(full + s, VEC ? 32 : 1);\n"),
+        (TCU, "    return;\n  }\n",
+         "    asm volatile(\"cp.async.wait_all;\\n\" ::: \"memory\");\n"
+         "    return;\n  }\n"),
+        (TCU, '      unsigned bytes = 0;\n      for (int b = lane; b < nb; b += 32) {\n        bytes += 4u * ((off(jj, b0 + b) + cnt + 3) & ~3);\n      }\n      bytes = __reduce_add_sync(0xffffffffu, bytes);\n      if (lane == 0) mbar_expect(full + slot, bytes);\n      __syncwarp();\n      for (int b = lane; b < nb; b += 32) {\n        const int d = off(jj, b0 + b);\n        bulk_copy(dst + b * ld, src + (size_t)b * m - d,\n                  4u * ((d + cnt + 3) & ~3), full + slot);\n      }\n',
+         '      if constexpr (VEC) {  // 16-byte cp.async, no division a copy\n        const int per = cnt / 4;\n        int pb = lane / per, pi = lane - pb * per;\n        const int db = 32 / per, di = 32 - db * per;\n        while (pb < nb) {\n          cp_async<4>(dst + pb * ld + 4 * pi, src + (size_t)pb * m + 4 * pi);\n          pi += di;\n          pb += db;\n          if (pi >= per) {\n            pi -= per;\n            ++pb;\n          }\n        }\n        asm volatile(\n            "cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\\n" ::"r"(\n                smem_u32(full + slot))\n            : "memory");\n        continue;\n      }\n      unsigned bytes = 0;\n      for (int b = lane; b < nb; b += 32) {\n        bytes += 4u * ((off(jj, b0 + b) + cnt + 3) & ~3);\n      }\n      bytes = __reduce_add_sync(0xffffffffu, bytes);\n      if (lane == 0) mbar_expect(full + slot, bytes);\n      __syncwarp();\n      for (int b = lane; b < nb; b += 32) {\n        const int d = off(jj, b0 + b);\n        bulk_copy(dst + b * ld, src + (size_t)b * m - d,\n                  4u * ((d + cnt + 3) & ~3), full + slot);\n      }\n'),
+    ],
+    "k9_l2_hints": [
+        (TCU, "    const int total = n_blocks * LB;  // < 2^31 (the launch checks)\n",
+         "    unsigned long long pol_last, pol_first;\n"
+         "    asm volatile(\"createpolicy.fractional.L2::evict_last.b64 %0, "
+         "1.0;\\n\" : \"=l\"(pol_last));\n"
+         "    asm volatile(\"createpolicy.fractional.L2::evict_first.b64 %0, "
+         "1.0;\\n\" : \"=l\"(pol_first));\n"
+         "    const int total = n_blocks * LB;  // < 2^31 (the launch checks)\n"),
+        (TCU, "        bulk_copy(dst + b * ld, src + (size_t)b * m - d,\n"
+         "                  4u * ((d + cnt + 3) & ~3), full + slot);\n",
+         "        asm volatile(\n"
+         "            \"cp.async.bulk.shared::cluster.global.mbarrier::\"\n"
+         "            \"complete_tx::bytes.L2::cache_hint [%0], [%1], %2, \"\n"
+         "            \"[%3], %4;\\n\" ::\"r\"(smem_u32(dst + b * ld)),\n"
+         "            \"l\"(src + (size_t)b * m - d),\n"
+         "            \"r\"(4u * ((d + cnt + 3) & ~3)),\n"
+         "            \"r\"(smem_u32(full + slot)),\n"
+         "            \"l\"(l < N ? pol_last : pol_first) : \"memory\");\n"),
+    ],
+    "k9_chunk_32k": [
+        (TPLAN, "K9_CHUNK_BYTES = 64 * 1024", "K9_CHUNK_BYTES = 32 * 1024"),
+    ],
 }
 
 
@@ -107,6 +156,7 @@ def main() -> None:
         with open(path) as f:
             src = f.read()
         if src.count(old) != 1:
+            shutil.rmtree(dest)
             raise SystemExit(f"{name}: {old!r} occurs {src.count(old)} "
                              f"times in {rel}")
         with open(path, "w") as f:

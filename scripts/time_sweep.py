@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
-"""K1 (`sweep_t`, the single-lambda BCD sweep) and K8 (`sweep_slab_t`, its
-slab twin with the merge payload) of one source tree on the card: K1 on the
+"""K1 (`sweep_t`, the single-lambda BCD sweep), K8 (`sweep_slab_t`, its
+slab twin with the merge payload) and K9 (`sweep_tiled_t`, the streamed
+sweep for blocks K1's tile cannot hold) of one source tree on the card: K1 on the
 headline's A_t (1250 x 80 x 10 000, l1) with an all-ones keep mask as the
 main path passes it and with config 3's keep mask (nonneg_l1, 17 % of the
 columns kept, as config 3's last check leaves them), K1 and K8 on config
 4's group tile (1000 x 200 x 20 000, group_l2 over groups of 200 with
 weights), and K8 and K1 on one rank's slab of the headline (625 x 80 x
 10 000) and where n >> m (the small sharded instance's slab width, B =
-200 at m = 500, l1 and group_l2; K1 also at B = 40, m = 200).
+200 at m = 500, l1 and group_l2; K1 also at B = 40, m = 200); K9 at
+config 4's K9 route (100 x 2000 x 20 000, group_l2 over groups of 200 with
+weights, and l1) and at the tall shape (250 x 80 x 100 000, l1, the
+all-ones mask; and at m = 100 003, K9's scalar instance).
 
     python3 scripts/time_sweep.py [--root DIR] [--only SETTING[,SETTING]]
 
@@ -24,7 +28,11 @@ bits, and times it with CUDA events over REPS launches.  Each JSON line
 carries ms per sweep, us per block, the bound (bytes at 3.35 TB/s or f32
 operations at 67 TFLOP/s), the plain version's ms, each CUDA kernel's mean
 device time per call from `torch.profiler`, K1's plan (on a tree that has
-`bcd_sweep.sweep_plan`), and the card's name and power limit; the slab's
+`bcd_sweep.sweep_plan`) or K9's (on a tree that has
+`bcd_sweep_tiled.tiled_plan` returning a plan), K9's time to read A twice
+and its plan's design bound (both from `chip_smoke.k9_bounds`), a digest of
+the kernel's x and r (`bits`: the same on two trees means the same bits),
+and the card's name and power limit; the slab's
 K8 line says whether K1 gives K8's bits of x and r there.  A first line
 gives the seconds of compiling csrc/sweep.cu alone.  Needs a CUDA card;
 imports nothing of JAX.
@@ -34,6 +42,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import os
 import sys
@@ -47,6 +56,11 @@ C4 = (1000, 200, 20_000)
 #: the small reference solve's (B = 40, m = 200), over many blocks
 SMALL_M = (500, 200, 500)
 SMALL_M200 = (2500, 40, 200)
+#: K9's shapes: config 4 at B = 2000 (block_size=3200) and the tall shape,
+#: whose 32 MB blocks fit the L2 and whose slab the ring mostly keeps
+C4_K9 = (100, 2000, 20_000)
+TALL = (250, 80, 100_000)
+TALL_RAGGED = (250, 80, 100_003)     # m % 4 != 0: K9's scalar instance
 C4_GSIZE = 200
 #: config 3's last check screens 82 890 of 100 000 columns (PERF.md §5)
 C3_KEPT = 1 - 82_890 / 100_000
@@ -64,6 +78,10 @@ SETTINGS = {
     "small_m_group": (SMALL_M, 500, "group_l2", None, "sweep_t"),
     "small_m_group_k8": (SMALL_M, 500, "group_l2", None, "sweep_slab_t"),
     "small_m200": (SMALL_M200, 2500, "l1", None, "sweep_t"),
+    "config4_k9_group": (C4_K9, 100, "group_l2", None, "sweep_tiled_t"),
+    "config4_k9_l1": (C4_K9, 100, "l1", None, "sweep_tiled_t"),
+    "tall_k9": (TALL, 250, "l1", "ones", "sweep_tiled_t"),
+    "tall_k9_ragged": (TALL_RAGGED, 250, "l1", "ones", "sweep_tiled_t"),
 }
 
 
@@ -126,7 +144,7 @@ def make_data(shape, dev) -> dict:
     z = mv.neg_at_r_t_plain(A_t, b, torch.zeros(n, device=dev), 0.0)
     d = {"A_t": A_t, "b": b, "lmax": float(z.abs().max()),
          "steps": k1.block_steps(mv.block_power_t_plain(A_t), 0.0)}
-    if B == C4_GSIZE:
+    if B % C4_GSIZE == 0:
         ng = n // C4_GSIZE
         d["w"] = 0.5 + torch.rand(ng, generator=gen, device=dev)
         d["glmax"] = float((torch.linalg.vector_norm(
@@ -144,6 +162,7 @@ def run_setting(cs, trace_us, d: dict, blocks: int, kind: str, keep,
     from convex_optimization_tpu_torch.models.penalties import Penalty
     from convex_optimization_tpu_torch.ops import bcd_sweep as k1
     from convex_optimization_tpu_torch.ops import bcd_sweep_slab as k8
+    from convex_optimization_tpu_torch.ops import bcd_sweep_tiled as k9
 
     A_t = d["A_t"][:blocks]
     nb, B, m = A_t.shape
@@ -160,10 +179,10 @@ def run_setting(cs, trace_us, d: dict, blocks: int, kind: str, keep,
                               steps, mask, pen, 0.0)
     args = (A_t, x0, r0, steps, mask, pen, 0.0)
     tol = 1e-4
-    if kernel == "sweep_t":
-        fn, plain = k1.sweep_t, k1.sweep_t_plain
-    else:
-        fn, plain = k8.sweep_slab_t, k8.sweep_slab_t_plain
+    fn, plain = {"sweep_t": (k1.sweep_t, k1.sweep_t_plain),
+                 "sweep_slab_t": (k8.sweep_slab_t, k8.sweep_slab_t_plain),
+                 "sweep_tiled_t": (k9.sweep_tiled_t,
+                                   k9.sweep_tiled_t_plain)}[kernel]
     out_k, out_r = fn(*args), fn(*args)
     if not all(torch.equal(a, c) for a, c in zip(out_k, out_r)):
         raise SystemExit(f"time_sweep: {kernel}: two launches differ")
@@ -172,7 +191,10 @@ def run_setting(cs, trace_us, d: dict, blocks: int, kind: str, keep,
                        out_p[1], tol)
     if float((out_p[0] - x0).abs().max()) == 0:
         raise SystemExit("time_sweep: the sweep did not move x")
-    line: dict = {}
+    # the bits of x and r, so two trees' lines show a bit-for-bit match
+    line: dict = {"bits": hashlib.sha256(
+        out_k[0].cpu().numpy().tobytes()
+        + out_k[1].cpu().numpy().tobytes()).hexdigest()[:16]}
     work = cs.sweep_work(m, n, nb)
     if kernel == "sweep_slab_t":
         pk, pp = out_k[2], out_p[2]
@@ -207,6 +229,14 @@ def run_setting(cs, trace_us, d: dict, blocks: int, kind: str, keep,
         plan = k1.sweep_plan(A_t.device, B, m)
         line["plan"] = dataclasses.asdict(plan) | {
             "smem_bytes": plan.smem_bytes}
+    if kernel == "sweep_tiled_t":
+        plan = k9.tiled_plan(A_t.device, B, m)
+        if dataclasses.is_dataclass(plan):      # the first design's is not
+            line["plan"] = dataclasses.asdict(plan) | {
+                "n_chunks": plan.n_chunks, "smem_bytes": plan.smem_bytes}
+        bounds = cs.k9_bounds(m, n, nb, line.get("plan"),
+                              work[0] - cs.sweep_work(m, n, nb)[0])
+        line |= {k: v for k, v in bounds.items() if k != "bound_ms"}
     return line
 
 

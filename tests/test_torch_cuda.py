@@ -14,7 +14,9 @@ bound witness_gamma(m) ||A_j|| ||r|| per column, on which the f64 polish's
 certificate rests.  K2 and K3 give the same bits on two launches, and on
 unaligned or slab views as on aligned copies (torch.equal); K1 and K8
 give the same bits on two launches and on unaligned views, and K8's x and
-r are K1's on the same slab (torch.equal: one kernel, one plan).  K5 with a 0/1
+r are K1's on the same slab (torch.equal: one kernel, one plan); K9 gives
+the same bits on two launches, and on an unaligned view (its scalar
+instance) matches the plain version.  K5 with a 0/1
 row mask equals K5 on a masked copy of A bit for bit (torch.equal), with
 every penalty; K5, K6 and K7 give the same bits on two launches, and K5 on
 an unaligned A_t view the bits of the aligned copy (torch.equal).
@@ -255,8 +257,16 @@ def test_sweep_kernel_matches_plain(cuda, m, n, B, kind):
     assert bool((x_k[~mask] == 0).all())
 
 
-#: K9 at small shapes and at one K1 refuses (a 2000 x 32 tile: 256 KB)
-TILED_SHAPES = [(256, 1024, 32), (200, 800, 40), (4096, 2000 * 4, 2000)]
+#: K9 on a 132-SM card at small shapes, whose whole slab the ring keeps
+#: (one chunk, kept: phase 2 copies nothing); at one K1 refuses (a 2000 x
+#: 32 tile: 256 KB; 5 chunks of 455, 2 kept, the last 180 coordinates);
+#: config 4's plan on 4 blocks (20 chunks of 105, 2 kept, the last 5);
+#: m % 4 != 0 (the scalar instance: 4 chunks of 21, 2 kept, the last 17);
+#: a 16-block slice of the tall shape (B = 80, m = 100 000: the same
+#: chunks, float4).  tests/test_torch_tiled.py holds these plans.
+TILED_SHAPES = [(256, 1024, 32), (200, 800, 40), (4096, 2000 * 4, 2000),
+                (20_000, 2000 * 4, 2000), (100_003, 80 * 4, 80),
+                (100_000, 80 * 16, 80)]
 
 
 def _group_penalty(n, B, device, seed=3):
@@ -304,6 +314,48 @@ def test_tiled_sweep_kernel_matches_plain(cuda, m, n, B, kind):
     mask = torch.rand(n, generator=torch.Generator().manual_seed(2)) > 0.05
     _one_sweep(sweep_tiled_t, sweep_tiled_t_plain, p, x, pen, mask.to(cuda))
     _one_sweep(sweep_tiled_t, sweep_tiled_t_plain, p, x, pen, None)
+
+
+@pytest.mark.parametrize("kind", ["l1", "nonneg_l1", "group_l2"])
+@pytest.mark.parametrize("m,n,B", [(256, 1024, 32), (4096, 2000 * 4, 2000),
+                                   (20_000, 2000 * 4, 2000)])
+def test_tiled_sweep_kernel_is_deterministic(cuda, m, n, B, kind):
+    """No float atomics, a fixed summation order: two launches of K9 on the
+    same inputs give the same bits, masked and not."""
+    p, x = _data(m, n, B, cuda)
+    pen, x, r, steps, mask = _sweep_inputs(p, x, kind, cuda)
+    for keep in (mask, None):
+        args = (p.A_t, x, r, steps, keep, pen, p.lam2)
+        x1, r1 = sweep_tiled_t(*args)
+        x2, r2 = sweep_tiled_t(*args)
+        assert torch.equal(x1, x2) and torch.equal(r1, r2)
+
+
+@pytest.mark.parametrize("kind", ["l1", "nonneg_l1", "group_l2"])
+@pytest.mark.parametrize("m,n,B", [(4096, 2000 * 4, 2000),
+                                   (100_000, 80 * 4, 80)])
+def test_tiled_sweep_kernel_on_an_unaligned_view(cuda, m, n, B, kind):
+    """A contiguous A_t view 4 bytes past a 16-byte boundary takes K9's
+    scalar instance (each run 1 float into its row) and matches the plain
+    version, masked and not, with the same bits on two launches."""
+    p, x = _data(m, n, B, cuda)
+    pen = (_group_penalty(n, B, cuda) if kind == "group_l2"
+           else Penalty(lam1=0.05, kind=kind))
+    if kind == "nonneg_l1":
+        x = x.abs()
+    buf = torch.empty(p.A_t.numel() + 1, device=cuda)
+    A_u = buf[1:].view(p.A_t.shape)
+    A_u.copy_(p.A_t)
+    assert A_u.is_contiguous() and A_u.data_ptr() % 16 != 0
+    p_u = dataclasses.replace(p, A_t=A_u)
+    mask = torch.rand(n, generator=torch.Generator().manual_seed(4)) > 0.05
+    for keep in (mask.to(cuda), None):
+        _one_sweep(sweep_tiled_t, sweep_tiled_t_plain, p_u, x, pen, keep)
+        r = ax_minus_b_t_plain(A_u, x, p.b)
+        steps = block_steps(block_power_t_plain(A_u), p.lam2, 0.5)
+        args = (A_u, x, r, steps, keep, pen, p.lam2)
+        out1, out2 = sweep_tiled_t(*args), sweep_tiled_t(*args)
+        assert all(torch.equal(a, b) for a, b in zip(out1, out2))
 
 
 def _sweep_inputs(p, x, kind, cuda, seed=1):

@@ -619,7 +619,7 @@ def test_ctypes_declarations_match_the_c_entry_points():
     found = _c_params(_build.sources(), re.compile(
         r"^(?:int|const char\*) (cot_\w+)\(([^)]*)\)\s*\{", re.M))
     assert len(found) >= 14
-    assert {"cot_sweep_t", "cot_sweep_check", "cot_sweep_tiled_plan",
+    assert {"cot_sweep_t", "cot_sweep_check", "cot_sweep_tiled_check",
             "cot_sweep_tiled_t", "cot_sweep_slab_t"} <= set(found)
     for name, n_params in found.items():
         assert len(getattr(lib, name).argtypes) == n_params, name
