@@ -103,7 +103,26 @@ non-zero without one.  Phases, each of which fails the run if it fails:
   11. config 3 (nonneg elastic net, lam2 1e-3, 10k x 100k): solve(
      bcd_pallas, ..., screen_every=1) with gap-safe screening at every
      check, some columns screened at the last check, polished to an f64
-     rel_gap <= 1e-6.
+     rel_gap <= 1e-6;
+  12. the working-set solvers at the headline: solve(fista_ws) and
+     solve(bcd_ws) with phase 4's settings, each polished to an f64
+     rel_gap <= 1e-6, K2 and K3 (and K1 and K4 for bcd_ws) launched, the
+     last working set smaller than n; time to the certificate beside
+     phase 4's;
+  13. ADMM: solve(admm, admm_setup="host") at the headline (the Woodbury
+     route: the 10000 x 10000 Gram on the card, its f64 eigh on the host)
+     polished to an f64 rel_gap <= 1e-6, with the Gram's and the eigh's
+     seconds; then the device set-up (an f32 eigh on the card) at 2000 x
+     8000 on the card and on the CPU, both converged, certified after the
+     polish, with the same support;
+  14. config 2's 10-point grid with lambda_path(compact=True) and the
+     bcd_ws, fista_ws and ADMM (admm_setup="host") paths, phase 7's
+     settings, every converged point's f64 rel_gap <= 1e-4, beside phase
+     7's walls;
+  15. the group working set: solve(bcd_ws) on the small group reference
+     instance (4096 x 4000, 40 groups) at 0.01 lam_max, on the card and on
+     the CPU: the same rounds, working sets within one bucket, both
+     polished to 1e-6 with the same active groups.
 
 Every path reads the launch counts set to 0 just before it.  Prints a JSON
 line per measured phase, one for the kernels (each with its time, the
@@ -178,6 +197,19 @@ PATH_GAP_FACTOR = 2.0
 PATH_LEVELS = (10, 100, 1000, 10_000)
 PATH_LAST_DECADE = 2
 FISTA_MID = (2, 2000, 10_000)                          # seed, m, n
+# ADMM at the headline: the JAX package's at-scale settings
+# (scripts/measure_admm_scale.py:41-56); the device set-up card against
+# CPU at a size under the fence (min(m, n) <= 4096), to an f32 tol of
+# 1e-4: its f32 eigh floors the f32 gap at 2.3-2.6e-5 on the card and on
+# the CPU alike, where tol 1e-5 ends both on the stall rule
+ADMM_KW = dict(tol=1e-6, max_iters=4000, gap_every=10, stall_checks=25)
+ADMM_SMALL = (6, 2000, 8000)                           # seed, m, n
+ADMM_SMALL_KW = dict(tol=1e-4, max_iters=4000, gap_every=10,
+                     stall_checks=25)
+# the group working set: small_group_reference's instance at a lam1 where
+# the burn-in does not reach tol, so a compact round runs (0.05 lam_max,
+# that phase's, converges in the burn-in: no slab)
+GROUP_WS_LAM = 0.01
 # the H100 SXM's published peaks (NVIDIA data sheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -912,13 +944,13 @@ def config2_path(problem, gpu: str, power: str, stats: dict
 
 
 def config2_fista_path(problem, gpu: str, power: str, bcd_wall: float,
-                       matvec: dict) -> None:
+                       matvec: dict) -> float:
     """Config 2's 10-point FISTA lambda path (lambda_path's default
     method) with the bcd_batch path's settings: K2 and K3 launched on
     every step, every converged point's f64 rel_gap at the f32 floor; its
     wall beside the bcd_batch path's, and K2's and K3's launches and their
     share of the wall (launches times their phase-5 time on config 2's
-    A_t, ``matvec``, over the wall)."""
+    A_t, ``matvec``, over the wall).  Returns the wall."""
     import torch
 
     import convex_optimization_tpu_torch as cot
@@ -965,6 +997,7 @@ def config2_fista_path(problem, gpu: str, power: str, bcd_wall: float,
     }), flush=True)
     bad = [g for g, c in zip(f64, conv) if c and g > C2_F32_FLOOR]
     require(not bad, f"FISTA path: converged points with f64 gaps {bad}")
+    return wall
 
 
 def config2_cv(problem, gpu: str, power: str, stats: dict) -> None:
@@ -2024,6 +2057,287 @@ def sharded_phase(device, problem, A_np, b_np, gpu: str, power: str
     return k8_launches
 
 
+def ws_headline(problem, A_np, b_np, gpu: str, power: str,
+                main: dict) -> dict:
+    """Phase 12: solve(fista_ws) and solve(bcd_ws, block_size=128) at the
+    headline with the main path's settings, each polished to an f64
+    rel_gap <= 1e-6; K2 and K3 (and K1 and K4 for bcd_ws) launched, the
+    last working set smaller than n.  Their time to the certificate
+    beside the main path's (``main``).  Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    import convex_optimization_tpu_torch as cot
+    from convex_optimization_tpu_torch.ops import _build
+
+    out = {}
+    for method in ("fista_ws", "bcd_ws"):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        res = cot.solve(problem, method, **SOLVE_KW)
+        pr = cot.polish_support(problem, res.x, tol=SOLVE_KW["tol"],
+                                A_host=A_np, b_host=b_np)
+        torch.cuda.synchronize()
+        launches = dict(_build.launches)
+        h = res.history
+        print(json.dumps({
+            "metric": f"{method}_time_to_certified_1e-06_rel_gap_lasso_"
+                      f"{M}x{N}",
+            "rounds": h["rounds"],
+            "inner_iters": h["inner_iters"],
+            "ws_size": h["ws_size"],
+            "setup_s": res.setup_time_s,
+            "burn_s": h["burn_s"],
+            "rounds_s": h["wall_s"] - h["setup_s"] - h["burn_s"],
+            "solve_wall_s": res.wall_time_s,
+            "polish_wall_s": pr.wall_time_s,
+            "total_s": res.wall_time_s + pr.wall_time_s,
+            "bcd_pallas_solve_wall_s": main["solve_wall_s"],
+            "bcd_pallas_polish_wall_s": main["polish_wall_s"],
+            "bcd_pallas_total_s": main["total_s"],
+            "f32_rel_gap": res.rel_gap,
+            "f64_rel_gap": pr.rel_gap,
+            "nnz": int(np.count_nonzero(pr.x)),
+            "launches": launches,
+            "gpu": gpu,
+            "power_limit": power,
+        }), flush=True)
+        require(res.x.shape == (N,) and bool(torch.isfinite(res.x).all()),
+                f"{method}: x")
+        need = ("ax_minus_b_t", "neg_at_r_t") + (
+            ("sweep_t", "block_power_t") if method == "bcd_ws" else ())
+        for name in need:
+            require(launches.get(name, 0) > 0,
+                    f"{method}: {name} never launched")
+        require(h["ws_size"] < N, f"{method}: working set {h['ws_size']}")
+        require(pr.rel_gap <= SOLVE_KW["tol"],
+                f"{method}: f64 certificate {pr.rel_gap}")
+        out[method] = launches
+    return out
+
+
+def admm_headline(problem, A_np, b_np, gpu: str, power: str) -> dict:
+    """Phase 13a: solve(admm, admm_setup="host") at the headline (the
+    Woodbury route, m = 10000: the Gram on the card, its f64 eigh on the
+    host) with the JAX package's at-scale settings, polished to an f64
+    rel_gap <= 1e-6.  Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    import convex_optimization_tpu_torch as cot
+    from convex_optimization_tpu_torch.ops import _build
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    res = cot.solve(problem, "admm", admm_setup="host", **ADMM_KW)
+    pr = cot.polish_support(problem, res.x, tol=ADMM_KW["tol"],
+                            A_host=A_np, b_host=b_np)
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    print(json.dumps({
+        "metric": f"admm_host_time_to_certified_1e-06_rel_gap_lasso_{M}x{N}",
+        "gram_s": res.history["gram_s"],
+        "eigh_s": res.history["eigh_s"],
+        "setup_s": res.setup_time_s,
+        "iterations": res.iterations,
+        "solve_wall_s": res.wall_time_s,
+        "ms_per_iteration": 1e3 * res.wall_time_s / max(res.iterations, 1),
+        "polish_wall_s": pr.wall_time_s,
+        "total_s": res.wall_time_s + pr.wall_time_s,
+        "f32_rel_gap": res.rel_gap,
+        "f64_rel_gap": pr.rel_gap,
+        "nnz": int(np.count_nonzero(pr.x)),
+        "launches": launches,
+        "gpu": gpu,
+        "power_limit": power,
+    }), flush=True)
+    require(res.method == "admm", f"headline ADMM ran {res.method}")
+    require(res.x.shape == (N,) and bool(torch.isfinite(res.x).all()),
+            "headline ADMM: x")
+    for name in ("ax_minus_b_t", "neg_at_r_t"):
+        require(launches.get(name, 0) > res.iterations,
+                f"headline ADMM: {name} launches {launches.get(name, 0)}")
+    require(pr.rel_gap <= ADMM_KW["tol"],
+            f"headline ADMM: f64 certificate {pr.rel_gap}")
+    return launches
+
+
+def admm_small(device, gpu: str, power: str) -> None:
+    """Phase 13b: the device set-up (min(m, n) <= the fence: an f32 eigh
+    on the card) at ADMM_SMALL, on the card and on the CPU: both converge,
+    both certify after the polish, with the same support."""
+    import numpy as np
+
+    import convex_optimization_tpu_torch as cot
+    from convex_optimization_tpu_torch.api import ADMM_FENCE_DIM
+    from convex_optimization_tpu_torch.core.datagen import (
+        make_lasso_instance_host,
+    )
+    from convex_optimization_tpu_torch.ops import _build
+
+    seed, m, n = ADMM_SMALL
+    require(min(m, n) <= ADMM_FENCE_DIM, "ADMM_SMALL is above the fence")
+    inst_c, A, b = make_lasso_instance_host(seed, m, n, device=device)
+    inst_h, _, _ = make_lasso_instance_host(seed, m, n, device="cpu")
+    out = {}
+    for where, inst in (("card", inst_c), ("cpu", inst_h)):
+        _build.reset_launches()
+        res = cot.solve(inst.problem, "admm", **ADMM_SMALL_KW)
+        pr = cot.polish_support(inst.problem, res.x, tol=1e-6, A_host=A,
+                                b_host=b)
+        out[where] = dict(iterations=res.iterations, wall_s=res.wall_time_s,
+                          setup_s=res.setup_time_s,
+                          eigh_s=res.history["eigh_s"],
+                          f32_rel_gap=res.rel_gap, converged=res.converged,
+                          f64_rel_gap=pr.rel_gap,
+                          support=np.abs(pr.x) > 0,
+                          launches=dict(_build.launches))
+    c, h = out["card"], out["cpu"]
+    same = bool((c.pop("support") == h.pop("support")).all())
+    print(json.dumps({"metric": f"admm_device_setup_card_vs_cpu_{m}x{n}",
+                      **{f"{k}_{w}": v for w, d in out.items()
+                         for k, v in d.items()},
+                      "same_support": same, "gpu": gpu,
+                      "power_limit": power}), flush=True)
+    require(c["launches"].get("neg_at_r_t", 0) > c["iterations"],
+            "small ADMM: K3 not launched per iteration")
+    require(c["converged"] and h["converged"],
+            f"small ADMM: converged card={c['converged']} "
+            f"cpu={h['converged']}")
+    require(max(c["f64_rel_gap"], h["f64_rel_gap"]) <= 1e-6,
+            "small ADMM: f64 certificates")
+    require(same, "small ADMM: supports differ card vs CPU")
+
+
+def config2_new_paths(device, gpu: str, power: str, bcd_wall: float,
+                      fista_wall: float) -> dict:
+    """Phase 14: config 2's 10-point grid with the compacting path, the
+    bcd_ws and fista_ws paths and the ADMM path (admm_setup="host":
+    min(m, n) = 5000 is above the fence), phase 7's settings; every
+    converged point's f64 rel_gap <= the f32 floor, as phase 7 reads its
+    FISTA path.  Walls beside phase 7's bcd_batch and FISTA paths.
+    Returns each path's launch counts."""
+    import torch
+
+    import convex_optimization_tpu_torch as cot
+    from convex_optimization_tpu_torch.core.datagen import (
+        make_lasso_instance_host,
+    )
+    from convex_optimization_tpu_torch.ops import _build
+    from convex_optimization_tpu_torch.solvers.common import SolverConfig
+
+    inst2, _, _ = make_lasso_instance_host(C2_SEED, C2_M, C2_N,
+                                           device=device)
+    problem = inst2.problem
+    cfg = SolverConfig(**C2_CFG)
+    out = {}
+    for name, kw, used in (
+            ("compact", dict(compact=True), "fista_compact"),
+            ("bcd_ws", dict(method="bcd_ws"), "bcd_ws"),
+            ("fista_ws", dict(method="fista_ws"), "fista_ws"),
+            ("admm_host", dict(method="admm", admm_setup="host"), "admm")):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = cot.lambda_path(problem, cfg, path_len=C2_LEN, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.launches)
+        f64 = certify(problem, res, cfg.tol)
+        conv = res.converged.cpu().tolist()
+        print(json.dumps({
+            "metric": f"config2_lambda_path_{C2_LEN}pt_{name}_{C2_M}x{C2_N}",
+            "method_used": res.method_used,
+            "wall_s": wall,
+            "bcd_batch_wall_s": bcd_wall,
+            "fista_path_wall_s": fista_wall,
+            "sweeps": res.sweeps,
+            "iters": res.iters.tolist(),
+            "kept": None if res.kept is None else res.kept.tolist(),
+            "converged": conv,
+            "f32_rel_gap": res.gaps.tolist(),
+            "f64_rel_gap": f64,
+            "nnz": (res.xs != 0).sum(dim=1).tolist(),
+            "launches": launches,
+            "gpu": gpu,
+            "power_limit": power,
+        }), flush=True)
+        require(res.method_used == used,
+                f"config-2 {name} path ran {res.method_used}")
+        require(res.xs.shape == (C2_LEN, C2_N)
+                and bool(torch.isfinite(res.xs).all()),
+                f"config-2 {name} path x")
+        for k in ("ax_minus_b_t", "neg_at_r_t"):
+            require(launches.get(k, 0) > 0, f"{name} path: {k} never "
+                    "launched")
+        if name == "bcd_ws":
+            require(launches.get("sweep_t", 0) > 0
+                    and launches.get("block_power_t", 0) > 0,
+                    "bcd_ws path: K1 or K4 never launched")
+        bad = [g for g, c in zip(f64, conv) if c and g > C2_F32_FLOOR]
+        require(not bad, f"config-2 {name} path: converged points with "
+                f"f64 gaps {bad}")
+        out[name] = launches
+    del problem, inst2
+    torch.cuda.empty_cache()
+    return out
+
+
+def group_ws_reference(device, gpu: str, power: str) -> dict:
+    """Phase 15: bcd_ws (whole groups; K1's group prox on the slabs) on
+    small_group_reference's instance at lam1 = GROUP_WS_LAM lam_max, tol
+    1e-6, on the card and on the CPU: the same
+    rounds, working sets within one bucket, both polished to 1e-6 with the
+    same active groups.  Returns the card run's launch counts."""
+    import numpy as np
+
+    import convex_optimization_tpu_torch as cot
+    from convex_optimization_tpu_torch.core.datagen import (
+        make_lasso_instance_host,
+    )
+    from convex_optimization_tpu_torch.ops import _build
+
+    kw = dict(penalty_kind="group_l2", ngroups=40, lam1_frac=GROUP_WS_LAM)
+    inst_c, A, b = make_lasso_instance_host(4, 4096, 4000, device=device,
+                                            **kw)
+    inst_h, _, _ = make_lasso_instance_host(4, 4096, 4000, device="cpu",
+                                            **kw)
+    solve_kw = dict(C4_SOLVE, block_size=128)
+    out = {}
+    for where, inst in (("card", inst_c), ("cpu", inst_h)):
+        _build.reset_launches()
+        res = cot.solve(inst.problem, "bcd_ws", **solve_kw)
+        pr = cot.polish_support(inst.problem, res.x, tol=1e-6, A_host=A,
+                                b_host=b)
+        out[where] = dict(rounds=res.history["rounds"],
+                          inner_iters=res.iterations,
+                          ws_size=res.history["ws_size"],
+                          wall_s=res.wall_time_s, f32_rel_gap=res.rel_gap,
+                          f64_rel_gap=pr.rel_gap,
+                          groups=np.abs(pr.x).reshape(40, -1).sum(axis=1) > 0,
+                          launches=dict(_build.launches))
+    c, h = out["card"], out["cpu"]
+    same = bool((c["groups"] == h["groups"]).all())
+    n_groups = int(c.pop("groups").sum())
+    h.pop("groups")
+    print(json.dumps({"metric": "group_bcd_ws_card_vs_cpu_4096x4000",
+                      **{f"{k}_{w}": v for w, d in out.items()
+                         for k, v in d.items()},
+                      "active_groups": n_groups, "same_groups": same,
+                      "gpu": gpu, "power_limit": power}), flush=True)
+    for k in ("sweep_t", "block_power_t", "ax_minus_b_t", "neg_at_r_t"):
+        require(c["launches"].get(k, 0) > 0,
+                f"group bcd_ws: {k} never launched")
+    require(c["rounds"] == h["rounds"],
+            f"group bcd_ws rounds {c['rounds']} vs {h['rounds']}")
+    require(abs(c["ws_size"] - h["ws_size"]) <= 128 and c["ws_size"] < 4000,
+            f"group bcd_ws working sets {c['ws_size']} vs {h['ws_size']}")
+    require(max(c["f64_rel_gap"], h["f64_rel_gap"]) <= 1e-6,
+            "group bcd_ws: f64 certificates")
+    require(same, "group bcd_ws: active groups differ card vs CPU")
+    return c["launches"]
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # one card: the first, unless the caller picked one
@@ -2135,7 +2449,10 @@ def main() -> None:
         "gpu": gpu_name,
         "power_limit": power_limit,
     }), flush=True)
-    # the headline instance stays for phases 9 and 10
+    main_walls = dict(solve_wall_s=res.wall_time_s,
+                      polish_wall_s=pr.wall_time_s,
+                      total_s=res.wall_time_s + pr.wall_time_s)
+    # the headline instance stays for phases 9, 10, 12 and 13
     del res, pr, A_t80
 
     # 5. batched kernels vs plain versions, and K2 and K3 on config 2's A_t
@@ -2170,7 +2487,8 @@ def main() -> None:
 
     # 7. config 2: the lambda path, then K-fold CV
     path_launches, c2_wall = config2_path(p2, gpu_name, power_limit, stats)
-    config2_fista_path(p2, gpu_name, power_limit, c2_wall, c2_matvec)
+    c2_fista_wall = config2_fista_path(p2, gpu_name, power_limit, c2_wall,
+                                       c2_matvec)
     config2_cv(p2, gpu_name, power_limit, stats)
     del p2, inst2
     torch.cuda.empty_cache()
@@ -2220,10 +2538,24 @@ def main() -> None:
     # world-size-1 group, single-device FISTA
     slab_launches = sharded_phase(device, problem, A_np, b_np, gpu_name,
                                   power_limit)
-    del problem, inst, A_np, b_np
 
     # 11. config 3: nonneg elastic net with gap-safe screening, certified
     config3(device, gpu_name, power_limit)
+
+    # 12. the working-set solvers at the headline
+    ws_headline(problem, A_np, b_np, gpu_name, power_limit, main_walls)
+    # 13. ADMM: the headline with the host set-up, then the device set-up
+    # card against CPU under the fence
+    admm_headline(problem, A_np, b_np, gpu_name, power_limit)
+    del problem, inst, A_np, b_np
+    torch.cuda.empty_cache()
+    admm_small(device, gpu_name, power_limit)
+
+    # 14. config 2's compacting, working-set and ADMM paths
+    config2_new_paths(device, gpu_name, power_limit, c2_wall, c2_fista_wall)
+
+    # 15. the group working set, card against CPU
+    group_ws_reference(device, gpu_name, power_limit)
 
     require(all(math.isfinite(stats[k]["ms"]) for k in KERNELS),
             "kernel times")

@@ -8,8 +8,11 @@ Solves the same composite problems
 with the same certified duality gap.  Ported so far: the main path of
 ``bench.py`` (host data generation, the block-coordinate-descent solve over
 the transposed block-major layout ``A_t`` (n/B, B, m), the float64 support
-polish), FISTA/ISTA, gap-safe screening, the warm-started (FISTA and BCD)
-and batched lambda paths, K-fold CV, and the column-sharded solvers.  Its
+polish), FISTA/ISTA, the working-set solver (``fista_ws``, ``bcd_ws``),
+ADMM, gap-safe screening, the warm-started (FISTA, BCD, working-set,
+ADMM, compacting) and batched lambda paths, K-fold CV, and the
+column-sharded solvers: every single-device method and path mode of the
+JAX package's ``solve`` and ``lambda_path``.  Its
 device kernels are CUDA C++ for Hopper (``csrc/``); every kernel wrapper
 also has a plain PyTorch version, which runs for CPU tensors and serves as
 the kernel's oracle.
@@ -17,8 +20,9 @@ the kernel's oracle.
 Layout mirrors the JAX package:
 
     api        solve() / Result
-    solvers/   bcd and FISTA loops, screening, lambda paths (sequential,
-               batched), K-fold CV, check bookkeeping, f64 polish
+    solvers/   bcd, FISTA, working-set and ADMM loops, screening, lambda
+               paths (sequential, batched, compacting), K-fold CV, check
+               bookkeeping, f64 polish
     ops/       kernel wrappers + plain versions, nvcc build
     core/      Problem, duality gap, host data generation
     models/    penalty families

@@ -1,12 +1,12 @@
 """User-facing API: ``solve(problem, method=...) -> Result``.
 
-Counterpart of ``convex_optimization_tpu/api.py`` for the ``bcd``,
-``bcd_pallas``, ``fista`` and ``ista`` methods (``api.py:204-330,
-405-430`` there), the column-sharded solvers (``mesh=``, a
-``parallel.mesh.ColumnGroup``) and the f64 certify phase.  The relay
-timing protocol of the JAX package (a warm run, then a perturbed timed
-run) has no reason to exist here: the kernels are built and loaded before
-the clock starts, and the one solve is timed between
+Counterpart of ``convex_optimization_tpu/api.py``: every single-device
+method (``bcd``, ``bcd_pallas``, ``fista``, ``ista``, ``admm`` and the
+working-set ``fista_ws`` / ``bcd_ws``), the column-sharded solvers
+(``mesh=``, a ``parallel.mesh.ColumnGroup``) and the f64 certify phase.
+The relay timing protocol of the JAX package (a warm run, then a perturbed
+timed run) has no reason to exist here: the kernels are built and loaded
+before the clock starts, and the one solve is timed between
 ``torch.cuda.synchronize()`` calls.
 """
 
@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import Any, Optional
 
 import torch
@@ -28,10 +29,15 @@ from convex_optimization_tpu_torch.ops.matvec import (
 )
 from convex_optimization_tpu_torch.solvers import bcd as bcd_mod
 from convex_optimization_tpu_torch.solvers import fista as fista_mod
-from convex_optimization_tpu_torch.solvers.common import (
-    NOT_PORTED,
-    SolverConfig,
-)
+from convex_optimization_tpu_torch.solvers.common import SolverConfig
+from convex_optimization_tpu_torch.utils.device import sync as _sync
+
+#: ADMM's scale fence: above this min(m, n) the JAX package measured the
+#: float32 eigh of an ill-conditioned Gram stalling the solve near 1e-2
+#: rel gap (its ``api.py:33-37``); ``admm_force=True`` or
+#: ``admm_setup="host"`` (a float64 eigh) passes it.  A module constant,
+#: so tests can lower it.
+ADMM_FENCE_DIM = 4096
 
 
 @dataclasses.dataclass
@@ -53,11 +59,6 @@ class Result:
     @property
     def nnz(self) -> int:
         return int(torch.count_nonzero(self.x))
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def _pad_columns(problem: Problem, pad: int) -> Problem:
@@ -93,22 +94,23 @@ def solve(problem: Problem, method: str = "fista", *,
     method: 'fista' (the default, as in the JAX package) or 'ista' (K2/K3
     steps), 'bcd_pallas' (K1 or K9, K2-K4: the CUDA kernels for a CUDA
     problem, their plain versions for a CPU problem), 'bcd' (the plain
-    reference sweep); 'bcd_batch' solves a grid and is reached through
-    ``lambda_path``.  With ``mesh`` (a
+    reference sweep), 'fista_ws' / 'bcd_ws' (the working-set outer loop,
+    ``solvers/working_set.py``), 'admm' (``solvers/admm.py``: pass
+    ``admm_setup="host"`` for the float64 host eigh, ``admm_force=True``
+    to run the device set-up above ``ADMM_FENCE_DIM``, where it otherwise
+    warns and falls back to 'fista'); 'bcd_batch' solves a grid and is
+    reached through ``lambda_path``.  With ``mesh`` (a
     ``parallel.mesh.ColumnGroup``) every rank of the group calls this with
     the same problem and solves its column slab on the group's device
     (``parallel/sharded.py``).  ``certify=True`` finishes with the f64
     polish when the f32 solve stopped above tol.  Extra kwargs override
     SolverConfig fields."""
-    if method in NOT_PORTED:
-        raise NotImplementedError(
-            f"method {method!r} is not ported yet "
-            f"(ROADMAP {NOT_PORTED[method]})")
     if method == "bcd_batch":
         raise ValueError(
             "method 'bcd_batch' solves a LAMBDA GRID, not a single point — "
             "use lambda_path(problem, cfg, method='bcd_batch')")
-    if method not in ("bcd", "bcd_pallas", "fista", "ista"):
+    if method not in ("bcd", "bcd_pallas", "fista", "ista", "fista_ws",
+                      "bcd_ws", "admm"):
         raise ValueError(f"unknown method {method!r}")
     if mesh is not None:
         from convex_optimization_tpu_torch.parallel.sharded import (
@@ -123,13 +125,81 @@ def solve(problem: Problem, method: str = "fista", *,
         cfg_overrides.setdefault("momentum", False)
     if method == "bcd_pallas":
         cfg_overrides.setdefault("use_pallas", True)
+    admm_force = bool(cfg_overrides.pop("admm_force", False))
+    admm_setup = cfg_overrides.pop("admm_setup", "device")
     if cfg_overrides:
         cfg = dataclasses.replace(cfg, **cfg_overrides)
+    if method == "admm" and (min(problem.m, problem.n) > ADMM_FENCE_DIM
+                             and not admm_force and admm_setup != "host"):
+        warnings.warn(
+            f"admm at min(m, n) > {ADMM_FENCE_DIM} stalls ~1e-2 rel gap "
+            "(float32 eigh accuracy, measured by the JAX package) — falling "
+            "back to FISTA.  Pass admm_force=True to run ADMM anyway, or "
+            "admm_setup='host' for the float64 host eigh.", stacklevel=2)
+        return solve(problem, "fista", x0=x0, cfg=cfg, certify=certify)
     if method in ("fista", "ista"):
         res = _solve_fista(problem, method, x0, cfg)
+    elif method in ("fista_ws", "bcd_ws"):
+        res = _solve_ws(problem, method, x0, cfg)
+    elif method == "admm":
+        res = _solve_admm(problem, x0, cfg, admm_setup)
     else:
         res = _solve_bcd(problem, method, x0, cfg)
     return _maybe_certify(problem, res, certify)
+
+
+def _solve_ws(problem: Problem, method: str, x0, cfg: SolverConfig
+              ) -> Result:
+    """The working-set solver: the route (L_total, column norms and, for
+    'bcd_ws', K4's constants) is set-up; the wall counts the rest.
+    ``history`` carries the solver's meta."""
+    from convex_optimization_tpu_torch.solvers import working_set as ws
+
+    device = problem.device
+    if device.type == "cuda":
+        _build.load()
+    inner = "bcd" if method == "bcd_ws" else "fista"
+    _sync(device)
+    t0 = time.perf_counter()
+    route = ws.make_ws_route(problem, inner)
+    _sync(device)
+    setup_s = time.perf_counter() - t0
+    x, info, meta = ws.solve_working_set(problem, cfg, x0=x0, inner=inner,
+                                         route=route)
+    rel = float(info.rel_gap)
+    return Result(x=x, gap=float(info.gap), rel_gap=rel,
+                  primal=float(info.primal), iterations=meta["inner_iters"],
+                  converged=rel <= cfg.tol, wall_time_s=meta["wall_s"],
+                  history=meta, method=method, config=cfg,
+                  setup_time_s=setup_s)
+
+
+def _solve_admm(problem: Problem, x0, cfg: SolverConfig, setup: str
+                ) -> Result:
+    """ADMM: the factorisation (``admm.factorize``: its eigh on the device,
+    or in f64 on the host) is set-up; the wall counts the loop.
+    ``history`` holds the checks and the set-up's parts (``gram_s``,
+    ``eigh_s``)."""
+    from convex_optimization_tpu_torch.solvers import admm as admm_mod
+
+    device = problem.device
+    if device.type == "cuda":
+        _build.load()
+    _sync(device)
+    t0 = time.perf_counter()
+    fac = admm_mod.factorize(problem, setup)
+    state0 = admm_mod.init_state(problem, x0)
+    _sync(device)
+    t1 = time.perf_counter()
+    final = admm_mod.admm(problem, fac, state0, cfg)
+    _sync(device)
+    wall = time.perf_counter() - t1
+    return Result(x=final.x_best, gap=final.best_gap,
+                  rel_gap=final.best_rel_gap, primal=final.best_primal,
+                  iterations=final.k,
+                  converged=final.best_rel_gap <= cfg.tol, wall_time_s=wall,
+                  history={**final.history.trimmed(), **fac.setup_s},
+                  method="admm", config=cfg, setup_time_s=t1 - t0)
 
 
 def _solve_fista(problem: Problem, method: str, x0, cfg: SolverConfig

@@ -17,15 +17,6 @@ import numpy as np
 import torch
 
 
-#: methods of the JAX package that later PRs port (``solve`` and
-#: ``lambda_path`` raise for them), with their ROADMAP item
-NOT_PORTED = {
-    "fista_ws": "queue 1, item 11",
-    "bcd_ws": "queue 1, item 11",
-    "admm": "queue 1, item 12",
-}
-
-
 @dataclasses.dataclass(frozen=True)
 class SolverConfig:
     """Solver knobs: the JAX package's SolverConfig minus

@@ -64,16 +64,19 @@ def _check_and_record(problem: Problem, state: SolveState,
 
 
 def init_state(problem: Problem, x0: torch.Tensor | None,
-               keep_mask: torch.Tensor | None = None) -> SolveState:
+               keep_mask: torch.Tensor | None = None,
+               r0: torch.Tensor | None = None) -> SolveState:
     """Start state at x0 (zeros when None; then r = -b exactly, no
-    matvec)."""
+    matvec).  ``r0``: the residual A x0 - b when the caller has it (the
+    working-set solver threads K2's residual from its screen into every
+    warm start); else it is computed here."""
     n, dtype, device = problem.n, problem.dtype, problem.device
     if x0 is None:
         x = torch.zeros((n,), dtype=dtype, device=device)
         r = -problem.b.to(dtype)
     else:
         x = x0.to(device=device, dtype=dtype).clone()
-        r = problem.residual(x)
+        r = problem.residual(x) if r0 is None else r0.to(dtype)
     if keep_mask is None:
         keep_mask = torch.ones((n,), dtype=torch.bool, device=device)
     return SolveState(

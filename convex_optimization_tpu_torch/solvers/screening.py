@@ -41,12 +41,14 @@ def gap_safe_keep_mask(problem: Problem, x: torch.Tensor,
         r_norm=torch.linalg.vector_norm(r), primal=info.primal)
 
 
-def compact_problem(problem: Problem, keep_mask
+def compact_problem(problem: Problem, keep_mask, block: int = 0
                     ) -> tuple[Problem, torch.Tensor]:
     """Drop the screened columns: (smaller problem, int64 index tensor
     mapping its columns to the original's).  A group_l2 problem keeps
     whole groups (any kept member keeps its group) and their weights.  One
-    gathering copy of the kept columns, stored with ``default_block``."""
+    gathering copy of the kept columns (an ``index_select`` of
+    ``A_rows``), viewed with block width ``block``, or ``default_block``
+    when 0."""
     keep = np.asarray(torch.as_tensor(keep_mask).cpu(), dtype=bool)
     pen = problem.penalty
     if pen.kind == "group_l2":
@@ -61,7 +63,7 @@ def compact_problem(problem: Problem, keep_mask
     idx = torch.as_tensor(np.nonzero(keep)[0], device=problem.device)
     k = int(idx.shape[0])
     A_rows = problem.A_rows.index_select(0, idx)
-    blk = default_block(k) if k else 1
+    blk = block or (default_block(k) if k else 1)
     small = dataclasses.replace(
         problem, A_t=A_rows.view(k // blk, blk, problem.m), penalty=pen)
     return small, idx

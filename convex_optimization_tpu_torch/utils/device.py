@@ -26,3 +26,10 @@ def require_cuda() -> torch.device:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available")
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def sync(device: torch.device) -> None:
+    """Wait for the work queued on ``device`` (a no-op on the CPU): the
+    solvers' walls are taken between two of these."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

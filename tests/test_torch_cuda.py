@@ -22,7 +22,11 @@ every penalty; K5, K6 and K7 give the same bits on two launches, and K5 on
 an unaligned A_t view the bits of the aligned copy (torch.equal).
 Solves and paths on the card against the same on the CPU: certified in
 f64 (<= 2 tol: the f32 gap's own rounding), x within 5e-3 (two certified
-iterates) and step counts within one check.
+iterates) and step counts within one check.  The working-set solves:
+the same rounds, working sets within one bucket (a column at its
+screen's threshold), the same support after the polish; ADMM, whose
+balancing of rho is a discrete decision that one rounding can flip: both
+certified after the polish with the same support.
 """
 
 import dataclasses
@@ -985,3 +989,106 @@ def test_screened_nonneg_solve_on_card_matches_cpu(cuda):
     assert max(pr.rel_gap for pr in prs) <= 1e-6
     np.testing.assert_array_equal(np.abs(prs[0].x) > 1e-4,
                                   np.abs(prs[1].x) > 1e-4)
+
+
+@pytest.mark.parametrize("method,kind,ngroups", [
+    ("fista_ws", "l1", 0), ("bcd_ws", "l1", 0), ("bcd_ws", "group_l2", 50)])
+def test_working_set_on_card_matches_cpu(cuda, method, kind, ngroups):
+    """fista_ws / bcd_ws on the card (K1-K4 on the full A_t and the
+    slabs) against the CPU (plain versions), at tol 1e-6, where the f32
+    rel_gap can end a run on the stall rule (g > 0.9 of the previous
+    round's), which rounding decides: rounds within one, ws_size within
+    one bucket, both polished to 1e-6 with the same support."""
+    import convex_optimization_tpu_torch as cot
+    from convex_optimization_tpu_torch.core.datagen import (
+        make_lasso_instance_host,
+    )
+
+    shape = dict(penalty_kind=kind, ngroups=ngroups, lam1_frac=0.02)
+    inst_c, A, b = make_lasso_instance_host(3, 500, 2000, device=cuda,
+                                            **shape)
+    inst_h, _, _ = make_lasso_instance_host(3, 500, 2000, device="cpu",
+                                            **shape)
+    kw = dict(tol=1e-6, max_iters=5000, gap_every=10, stall_checks=15)
+    _build.reset_launches()
+    res_c = cot.solve(inst_c.problem, method, **kw)
+    launches = dict(_build.launches)
+    res_h = cot.solve(inst_h.problem, method, **kw)
+    assert launches["ax_minus_b_t"] > 0 and launches["neg_at_r_t"] > 0
+    if method == "bcd_ws":
+        assert launches["sweep_t"] > 0 and launches["block_power_t"] >= 1
+        # one K4 for the burn-in, one per compact round
+        assert launches["block_power_t"] == res_c.history["rounds"]
+    assert abs(res_c.history["rounds"] - res_h.history["rounds"]) <= 1
+    assert abs(res_c.history["ws_size"] - res_h.history["ws_size"]) <= 128
+    assert res_c.history["ws_size"] < 2000
+    prs = [cot.polish_support(p, r.x, tol=1e-6, A_host=A, b_host=b)
+           for p, r in ((inst_c.problem, res_c), (inst_h.problem, res_h))]
+    assert max(pr.rel_gap for pr in prs) <= 1e-6
+    np.testing.assert_array_equal(np.abs(prs[0].x) > 0,
+                                  np.abs(prs[1].x) > 0)
+
+
+@pytest.mark.parametrize("setup", ["device", "host"])
+def test_admm_on_card_matches_cpu(cuda, setup):
+    """ADMM (Woodbury, m = 500) on the card: the Gram by torch.matmul with
+    TF32 off, the loop's A q and A^T w by K2 and K3; both runs certified
+    after the polish with the same support; a TF32 Gram is refused."""
+    import convex_optimization_tpu_torch as cot
+    from convex_optimization_tpu_torch.core.datagen import (
+        make_lasso_instance_host,
+    )
+
+    inst_c, A, b = make_lasso_instance_host(3, 500, 2000, device=cuda)
+    inst_h, _, _ = make_lasso_instance_host(3, 500, 2000, device="cpu")
+    kw = dict(tol=1e-5, max_iters=3000, gap_every=10, stall_checks=15,
+              admm_setup=setup)
+    _build.reset_launches()
+    res_c = cot.solve(inst_c.problem, "admm", **kw)
+    assert _build.launches["ax_minus_b_t"] > res_c.iterations > 0
+    assert _build.launches["neg_at_r_t"] > res_c.iterations
+    res_h = cot.solve(inst_h.problem, "admm", **kw)
+    assert res_c.method == res_h.method == "admm"
+    prs = [cot.polish_support(p, r.x, tol=1e-6, A_host=A, b_host=b)
+           for p, r in ((inst_c.problem, res_c), (inst_h.problem, res_h))]
+    assert max(pr.rel_gap for pr in prs) <= 1e-6
+    np.testing.assert_array_equal(np.abs(prs[0].x) > 0,
+                                  np.abs(prs[1].x) > 0)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="tf32"):
+            cot.solve(inst_c.problem, "admm", **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+@pytest.mark.parametrize("kw", [dict(compact=True), dict(method="admm")])
+def test_compact_and_admm_paths_on_card_match_cpu(cuda, kw):
+    """The compacting FISTA path (screens by K2/K3 on the full A_t) and
+    the ADMM path on the card against the CPU: the same kept counts
+    (compact), every converged point certified in f64, x within 5e-3."""
+    import convex_optimization_tpu_torch as cot
+    from convex_optimization_tpu_torch.core.datagen import (
+        make_lasso_instance_host,
+    )
+    from convex_optimization_tpu_torch.solvers.common import SolverConfig
+
+    cfg = SolverConfig(tol=1e-5, max_iters=4000, gap_every=10,
+                       stall_checks=20)
+    inst_c, _, _ = make_lasso_instance_host(7, 200, 800, device=cuda)
+    inst_h, _, _ = make_lasso_instance_host(7, 200, 800, device="cpu")
+    res_c = cot.lambda_path(inst_c.problem, cfg, path_len=6,
+                            lam_min_frac=0.05, **kw)
+    res_h = cot.lambda_path(inst_h.problem, cfg, path_len=6,
+                            lam_min_frac=0.05, **kw)
+    assert res_c.method_used == res_h.method_used
+    if kw.get("compact"):
+        assert res_c.method_used == "fista_compact"
+        assert res_c.kept.cpu().tolist() == res_h.kept.tolist()
+    for l, lam in enumerate(res_c.lambdas.tolist()):
+        if bool(res_c.converged[l]):
+            gap = cot.duality_gap(inst_c.problem.with_lam1(lam),
+                                  res_c.xs[l], precise=True)
+            assert float(gap.rel_gap) <= 2e-5
+    torch.testing.assert_close(res_c.xs.cpu(), res_h.xs, rtol=0, atol=5e-3)

@@ -396,10 +396,7 @@ def test_bcd_batch_compact_raises():
                         method="bcd_batch", compact=True)
 
 
-@pytest.mark.parametrize("kw", [
-    dict(method="bcd_ws"), dict(method="fista_ws"), dict(method="admm"),
-    dict(method="bcd_pallas", compact=True), dict(mesh=object()),
-])
+@pytest.mark.parametrize("kw", [dict(mesh=object())])
 def test_unported_path_options_raise(kw):
     inst, _, _ = make_lasso_instance_host(26, 32, 64, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
