@@ -122,7 +122,17 @@ non-zero without one.  Phases, each of which fails the run if it fails:
   15. the group working set: solve(bcd_ws) on the small group reference
      instance (4096 x 4000, 40 groups) at 0.01 lam_max, on the card and on
      the CPU: the same rounds, working sets within one bucket, both
-     polished to 1e-6 with the same active groups.
+     polished to 1e-6 with the same active groups;
+  16. the front door: polish (two f64 host passes) and polish_fast (K3's
+     witness on the card) at phase 4's f32 x, each certified <= 1e-6 with
+     phase 4's support, K3 launched; then cli.main in this process:
+     config 3 at full width (bcd_pallas, --stall-checks 15, --polish,
+     --checkpoint, --jsonl; K1-K4 launched, the JSONL's first record
+     meta, the snapshot's f64 gap and the CLI's certificate <= 1e-6), the
+     same resumed from the snapshot in fewer sweeps, config 2's FISTA
+     path (every converged point's f64 gap <= 1e-4; K2, K3), config 1's
+     3-fold CV (K5), config 4's CI twin (K2, K3) and config 5's CI twin
+     over a world-size-1 NCCL group (K8 launched in the rank, K1 not).
 
 Every path reads the launch counts set to 0 just before it.  Prints a JSON
 line per measured phase, one for the kernels (each with its time, the
@@ -153,7 +163,7 @@ C2_F32_FLOOR = 1e-4          # BASELINE.md:88
 CV_K = 3                     # cut from 5 folds for the run's time
 BATCH_L = 10
 MATVEC_LS = (1, 4, BATCH_L, 16)      # the L at which K6 and K7 are checked
-# config 4: BASELINE.json:10, core/datagen.CONFIGS["config4"]
+# config 4: BASELINE.json:10, core/datagen.BENCH_CONFIGS["config4"]
 C4_SOLVE = dict(tol=1e-6, max_iters=20_000, gap_every=10, stall_checks=15)
 C4_ROUTES = (("k1_group", 128, 200, "sweep_t"),       # name, block_size, B,
              ("k9", 3200, 2000, "sweep_tiled_t"))     # the sweep it runs
@@ -210,6 +220,11 @@ ADMM_SMALL_KW = dict(tol=1e-4, max_iters=4000, gap_every=10,
 # the burn-in does not reach tol, so a compact round runs (0.05 lam_max,
 # that phase's, converges in the burn-in: no slab)
 GROUP_WS_LAM = 0.01
+# phase 16, the CLI: config 3 at full width as a user runs it (the CLI's
+# default block size), then config 2's path with phase 7's stall rule
+FRONT_C3 = ["--config", "config3", "--method", "bcd_pallas",
+            "--stall-checks", "15", "--polish"]
+FRONT_C2 = ["--config", "config2", "--stall-checks", "10"]
 # the H100 SXM's published peaks (NVIDIA data sheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -1324,7 +1339,7 @@ def config4_group_path(problem, A_np, b_np, gpu: str, power: str) -> None:
 def config3(device, gpu: str, power: str) -> dict:
     """Config 3 at full size: nonneg elastic net (lam2 1e-3) at 10k x
     100k, solve(bcd_pallas) with gap-safe screening at every check, then
-    the f64 polish to rel_gap <= 1e-6.  Returns the launch counts."""
+    the f64 polish to rel_gap <= 1e-6.  Returns its sweeps and walls."""
     import numpy as np
     import torch
 
@@ -1373,7 +1388,8 @@ def config3(device, gpu: str, power: str) -> dict:
     }), flush=True)
     require(pr.rel_gap <= C3_SOLVE["tol"],
             f"config 3: f64 certificate {pr.rel_gap}")
-    return launches
+    return dict(sweeps=sweeps, solve_wall_s=res.wall_time_s,
+                polish_wall_s=pr.wall_time_s)
 
 
 def config4(device, gpu: str, power: str, stats: dict) -> dict:
@@ -1386,20 +1402,17 @@ def config4(device, gpu: str, power: str, stats: dict) -> dict:
     import torch
 
     import convex_optimization_tpu_torch as cot
-    from convex_optimization_tpu_torch.core.datagen import (
-        CONFIGS,
-        make_lasso_instance_host,
-    )
+    from convex_optimization_tpu_torch.core.datagen import BENCH_CONFIGS
     from convex_optimization_tpu_torch.ops import _build
     from convex_optimization_tpu_torch.ops.bcd_sweep import (
         pick_block_size_t,
         sweep_route,
     )
 
-    c4 = CONFIGS["config4"]
-    m, n, ng = c4["m"], c4["n"], c4["ngroups"]
+    c4 = BENCH_CONFIGS["config4"]
+    m, n, ng = c4.m, c4.n, c4.ngroups
     t0 = time.perf_counter()
-    inst, A_np, b_np = make_lasso_instance_host(**c4, device=device)
+    inst, A_np, b_np = c4.instance_host(0, device=device)
     torch.cuda.synchronize()
     datagen_s = time.perf_counter() - t0
     problem = inst.problem
@@ -2338,6 +2351,194 @@ def group_ws_reference(device, gpu: str, power: str) -> dict:
     return c["launches"]
 
 
+def headline_polishes(problem, x_head, A_np, b_np, support, support_wall,
+                      gpu: str, power: str) -> None:
+    """Phase 16, first part: ``polish`` (two chunked f64 host passes) and
+    ``polish_fast``'s device variant (K3's witness on the card, inflated
+    by its rounding bound) at phase 4's f32 x: each certified <= 1e-6
+    with the support of phase 4's ``polish_support``, K3 launched once by
+    ``polish_fast``; their walls beside ``polish_support``'s."""
+    import numpy as np
+    import torch
+
+    from convex_optimization_tpu_torch.ops import _build
+    from convex_optimization_tpu_torch.solvers.polish import (
+        polish,
+        polish_fast,
+    )
+
+    tol = SOLVE_KW["tol"]
+    out = {}
+    for name, fn, kw in (("polish", polish, dict(A_host=A_np, b_host=b_np)),
+                         ("polish_fast_device", polish_fast, {})):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        pr = fn(problem, x_head, tol=tol, **kw)
+        torch.cuda.synchronize()
+        out[name] = dict(wall_s=pr.wall_time_s, f64_rel_gap=pr.rel_gap,
+                         kept=pr.kept, iterations=pr.iterations,
+                         same_support=bool(np.array_equal(pr.x != 0,
+                                                          support)),
+                         launches=dict(_build.launches))
+    print(json.dumps({
+        "metric": f"headline_polish_variants_{M}x{N}",
+        **{f"{k}_{name}": v for name, d in out.items() for k, v in d.items()},
+        "polish_support_wall_s": support_wall,
+        "support_size": int(support.sum()),
+        "gpu": gpu, "power_limit": power}), flush=True)
+    for name, d in out.items():
+        require(d["f64_rel_gap"] <= tol,
+                f"{name}: f64 certificate {d['f64_rel_gap']}")
+        require(d["same_support"], f"{name}: support differs from "
+                "polish_support's")
+    require(out["polish_fast_device"]["launches"].get("neg_at_r_t") == 1,
+            "polish_fast (device): K3 not launched once")
+
+
+class captured:
+    """Record (args, kwargs, result) of every call of ``module.name``
+    inside the ``with`` block (the CLI looks its solvers up at call
+    time), so a phase can check what the CLI solved."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.calls = module, name, []
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def wrap(*args, **kwargs):
+            result = self.orig(*args, **kwargs)
+            self.calls.append((args, kwargs, result))
+            return result
+
+        setattr(self.module, self.name, wrap)
+        return self.calls
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def run_cli(argv: list) -> tuple:
+    """``cli.main(argv)`` in this process with the launch counts set to 0
+    just before it: (its JSON line, the launches, the wall)."""
+    import contextlib
+    import io
+
+    import torch
+
+    from convex_optimization_tpu_torch import cli
+    from convex_optimization_tpu_torch.ops import _build
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    require(rc == 0, f"cli {argv}: exit code {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1]), launches, \
+        wall
+
+
+def front_door(device, gpu: str, power: str, c3_walls: dict,
+               c2_fista_wall: float) -> None:
+    """Phase 16: the CLI (``cli.main``) on the card.  Config 3 at full
+    width with the polish, a snapshot and JSONL, then resumed from the
+    snapshot (fewer sweeps); every run's snapshot certified by the port's
+    f64 gap, and the CLI's own certificate where it polished.  Config 2's
+    10-point FISTA path (every converged point <= 1e-4 in f64), config 1's
+    3-fold CV, config 4's CI twin, and config 5's CI twin over a
+    world-size-1 NCCL group (K8, not K1)."""
+    import tempfile
+
+    import torch
+
+    import convex_optimization_tpu_torch as cot
+    from convex_optimization_tpu_torch import api
+    from convex_optimization_tpu_torch.solvers import lambda_path as lp_mod
+    from convex_optimization_tpu_torch.utils.checkpoint import load_snapshot
+
+    tol = SOLVE_KW["tol"]
+
+    def line(metric, out, launches, wall, **extra):
+        print(json.dumps({"metric": metric, "cli": out, "cli_wall_s": wall,
+                          "launches": launches, **extra, "gpu": gpu,
+                          "power_limit": power}), flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        snap, jl = os.path.join(tmp, "c3.npz"), os.path.join(tmp, "c3.jsonl")
+        argv = FRONT_C3 + ["--checkpoint", snap, "--jsonl", jl]
+        sweeps = {}
+        for run, extra in (("first", []), ("resume", ["--resume"])):
+            with captured(api, "solve") as calls:
+                out, launches, wall = run_cli(argv + extra)
+            problem = calls[0][0][0]
+            x = torch.from_numpy(load_snapshot(snap).x).to(device)
+            f64 = float(cot.duality_gap(problem, x, precise=True).rel_gap)
+            with open(jl) as f:
+                first_record = json.loads(f.readline())["record"]
+            del calls, problem, x
+            torch.cuda.empty_cache()
+            sweeps[run] = out["iterations"]
+            line(f"cli_config3_{run}_{M}x{N}", out, launches, wall,
+                 f64_rel_gap_snapshot=f64, jsonl_first_record=first_record,
+                 phase11=c3_walls)
+            for name in MAIN_KERNELS if run == "first" else ():
+                require(launches.get(name, 0) > 0,
+                        f"cli config 3: {name} never launched")
+            require(first_record == "meta", "cli config 3: JSONL meta line")
+            require(f64 <= tol, f"cli config 3 ({run}): snapshot f64 {f64}")
+            require(out.get("certified", out["converged"])
+                    and out.get("certified_rel_gap", f64) <= tol,
+                    f"cli config 3 ({run}): not certified: {out}")
+        require(sweeps["resume"] < sweeps["first"],
+                f"cli config 3: resumed in {sweeps['resume']} sweeps, first "
+                f"run {sweeps['first']}")
+
+    with captured(lp_mod, "lambda_path") as calls:
+        out, launches, wall = run_cli(FRONT_C2)
+    (args, _, res), = calls
+    f64 = certify(args[0], res, tol)
+    conv = res.converged.cpu().tolist()
+    del calls, args, res
+    line(f"cli_config2_lambda_path_{C2_LEN}pt_fista_{C2_M}x{C2_N}", out,
+         launches, wall, f64_rel_gap=f64, converged=conv,
+         phase7_fista_wall_s=c2_fista_wall)
+    require(out["mode"] == "lambda_path" and len(out["path"]) == C2_LEN,
+            "cli config 2: path rows")
+    for name in ("ax_minus_b_t", "neg_at_r_t"):
+        require(launches.get(name, 0) > 0, f"cli config 2: {name}")
+    bad = [g for g, c in zip(f64, conv) if c and g > C2_F32_FLOOR]
+    require(not bad, f"cli config 2: converged points with f64 gaps {bad}")
+    torch.cuda.empty_cache()
+
+    out, launches, wall = run_cli(["--config", "config1", "--cv", "3"])
+    line("cli_config1_cv3_500x2000", out, launches, wall)
+    require(out["mode"] == "cv" and out["k"] == 3
+            and all(math.isfinite(v) for v in out["mean_mse"]),
+            "cli config 1 CV")
+    require(launches.get("batch_sweep_t", 0) > 0, "cli CV: K5")
+
+    out, launches, wall = run_cli(["--config", "config4", "--ci"])
+    line("cli_config4_ci", out, launches, wall)
+    require(math.isfinite(out["rel_gap"]) and out["n"] == 512,
+            "cli config 4 (CI)")
+    for name in ("ax_minus_b_t", "neg_at_r_t"):
+        require(launches.get(name, 0) > 0, f"cli config 4 (CI): {name}")
+
+    out, launches, wall = run_cli(["--config", "config5", "--ci", "--mesh",
+                                   "1", "--method", "bcd_pallas"])
+    line("cli_config5_ci_mesh1_nccl", out, launches, wall)
+    require(out["method"] == "sharded_bcd" and math.isfinite(out["rel_gap"]),
+            "cli config 5 (CI, mesh 1)")
+    require(launches.get("sweep_slab_t", 0) > 0
+            and launches.get("sweep_t", 0) == 0,
+            f"cli config 5 (mesh 1): K8 and not K1, got {launches}")
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # one card: the first, unless the caller picked one
@@ -2452,6 +2653,8 @@ def main() -> None:
     main_walls = dict(solve_wall_s=res.wall_time_s,
                       polish_wall_s=pr.wall_time_s,
                       total_s=res.wall_time_s + pr.wall_time_s)
+    # phase 16 polishes the same f32 x and holds them to this support
+    x_head, head_support = res.x.clone(), pr.x != 0
     # the headline instance stays for phases 9, 10, 12 and 13
     del res, pr, A_t80
 
@@ -2540,13 +2743,16 @@ def main() -> None:
                                   power_limit)
 
     # 11. config 3: nonneg elastic net with gap-safe screening, certified
-    config3(device, gpu_name, power_limit)
+    c3_walls = config3(device, gpu_name, power_limit)
 
     # 12. the working-set solvers at the headline
     ws_headline(problem, A_np, b_np, gpu_name, power_limit, main_walls)
     # 13. ADMM: the headline with the host set-up, then the device set-up
     # card against CPU under the fence
     admm_headline(problem, A_np, b_np, gpu_name, power_limit)
+    # 16 (first part). polish and polish_fast at phase 4's f32 x
+    headline_polishes(problem, x_head, A_np, b_np, head_support,
+                      main_walls["polish_wall_s"], gpu_name, power_limit)
     del problem, inst, A_np, b_np
     torch.cuda.empty_cache()
     admm_small(device, gpu_name, power_limit)
@@ -2556,6 +2762,10 @@ def main() -> None:
 
     # 15. the group working set, card against CPU
     group_ws_reference(device, gpu_name, power_limit)
+
+    # 16. the front door: the CLI on the card
+    torch.cuda.empty_cache()
+    front_door(device, gpu_name, power_limit, c3_walls, c2_fista_wall)
 
     require(all(math.isfinite(stats[k]["ms"]) for k in KERNELS),
             "kernel times")

@@ -60,6 +60,12 @@ class Result:
     def nnz(self) -> int:
         return int(torch.count_nonzero(self.x))
 
+    @property
+    def iters_per_sec(self) -> float:
+        """iterations / wall_time_s: the port times the run it counts."""
+        return (self.iterations / self.wall_time_s if self.wall_time_s > 0
+                else float("inf"))
+
 
 def _pad_columns(problem: Problem, pad: int) -> Problem:
     """Append ``pad`` zero columns (one copy of A_t).  Padded coordinates

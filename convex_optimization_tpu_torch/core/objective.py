@@ -90,6 +90,21 @@ def duality_gap(problem: Problem, x: torch.Tensor,
     )
 
 
+def primal_value(problem: Problem, x: torch.Tensor,
+                 r: torch.Tensor | None = None) -> torch.Tensor:
+    """P(x) = 0.5 (||r||^2 + lam2 ||x||^2) + g(x), r = A x - b."""
+    if r is None:
+        r = problem.residual(x)
+    return (0.5 * (torch.dot(r, r) + problem.lam2 * torch.dot(x, x))
+            + problem.penalty.value(x))
+
+
+def dual_value(problem: Problem, x: torch.Tensor,
+               r: torch.Tensor | None = None) -> torch.Tensor:
+    """D(theta) at the scaled residual of x (``duality_gap``'s dual)."""
+    return duality_gap(problem, x, r).dual
+
+
 def raw_dual_norm(z: torch.Tensor, penalty: Penalty) -> torch.Tensor:
     """The penalty's raw dual norm of a witness z (the lam1 at which x = 0
     satisfies the optimality condition against this witness)."""

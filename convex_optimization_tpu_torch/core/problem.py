@@ -107,6 +107,17 @@ class Problem:
     def with_lam1(self, lam1) -> "Problem":
         return dataclasses.replace(self, penalty=self.penalty.with_lam1(lam1))
 
+    def to(self, device=None, dtype: torch.dtype | None = None) -> "Problem":
+        """The same problem with its tensors (A_t, b, the group weights)
+        on ``device`` and/or in ``dtype`` (no copy where they already are)."""
+        pen = self.penalty
+        if pen.weights is not None:
+            pen = dataclasses.replace(
+                pen, weights=pen.weights.to(device=device, dtype=dtype))
+        return dataclasses.replace(
+            self, A_t=self.A_t.to(device=device, dtype=dtype),
+            b=self.b.to(device=device, dtype=dtype), penalty=pen)
+
 
 def default_block(n: int, target: int = 128) -> int:
     """Largest divisor of n that is <= target (the storage block width;

@@ -51,14 +51,15 @@ def _rank_main(job, rank: int, P: int, tmp_dir: str, device: str,
         pickle.dump(result, f)
 
 
-def run_ranks(job, P: int, tmp_dir, *args, device: str,
+def run_ranks(job, P: int, tmp_dir, *args, device,
               backend: str | None = None, timeout_s: float = 600.0,
               collective_timeout_s: float = 120.0,
               threads: int | None = None) -> list:
     """Results of ``job(group, *args)`` on P spawned ranks, in rank order.
-    ``device``: where every rank solves ("cuda:0", or "cpu"); the caller
-    names it.  ``backend`` defaults as ``init_multihost``'s (gloo for the
-    CPU; pass "gloo" to share one card among the ranks).  ``threads``: torch
+    ``device``: where every rank solves ("cuda:0", or "cpu"), or a list
+    naming each rank's device (one card per rank); the caller names it.
+    ``backend`` defaults as ``init_multihost``'s (gloo for the CPU; pass
+    "gloo" to share one card among the ranks).  ``threads``: torch
     threads per rank, by default the machine's cores split over the
     ranks (P ranks that each take every core spin against each other,
     and their small ops slow down many times over)."""
@@ -67,8 +68,12 @@ def run_ranks(job, P: int, tmp_dir, *args, device: str,
         threads = max(1, (os.cpu_count() or 1) // P)
     os.makedirs(tmp_dir, exist_ok=True)
     ctx = mp.get_context("spawn")
+    devices = ([device] * P if isinstance(device, (str, torch.device))
+               else list(device))
+    if len(devices) != P:
+        raise ValueError(f"{len(devices)} devices for {P} ranks")
     procs = [ctx.Process(target=_rank_main,
-                         args=(job, r, P, tmp_dir, device, backend,
+                         args=(job, r, P, tmp_dir, devices[r], backend,
                                collective_timeout_s, threads, args))
              for r in range(P)]
     for p in procs:

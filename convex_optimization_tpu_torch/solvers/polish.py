@@ -28,6 +28,7 @@ package imports jax, which the port may not).
 
 from __future__ import annotations
 
+import math
 import resource
 import sys
 import time
@@ -64,19 +65,57 @@ class _NpPenalty:
             self.w = (np.ones(ngroups) if weights is None
                       else np.asarray(weights, np.float64))
 
+    def _g(self, x):
+        return x.reshape(self.ngroups, -1)
+
     def value(self, x):
         if self.kind == "group_l2":
-            gn = np.linalg.norm(x.reshape(self.ngroups, -1), axis=1)
+            gn = np.linalg.norm(self._g(x), axis=1)
             return self.lam1 * (self.w * gn).sum()
         return self.lam1 * np.abs(x).sum()
+
+    def prox(self, v, t):
+        tl = t * self.lam1
+        if self.kind == "l1":
+            return np.sign(v) * np.maximum(np.abs(v) - tl, 0.0)
+        if self.kind == "nonneg_l1":
+            return np.maximum(v - tl, 0.0)
+        vg = self._g(v)
+        gn = np.linalg.norm(vg, axis=1, keepdims=True)
+        scale = np.maximum(0.0, 1.0 - tl * self.w[:, None]
+                           / np.maximum(gn, 1e-300))
+        return (vg * scale).reshape(v.shape)
 
     def dual_norm(self, z):
         if self.kind == "l1":
             return np.max(np.abs(z)) / self.lam1
         if self.kind == "nonneg_l1":
             return max(np.max(z), 0.0) / self.lam1
-        gn = np.linalg.norm(z.reshape(self.ngroups, -1), axis=1)
+        gn = np.linalg.norm(self._g(z), axis=1)
         return np.max(gn / self.w) / self.lam1
+
+    def keep_mask(self, z, alpha, gap, col_norms):
+        """The gap-safe sphere test at the witness alpha * z."""
+        radius = np.sqrt(max(2.0 * gap, 0.0))
+        witness = alpha * z
+        if self.kind == "l1":
+            return ~(np.abs(witness) + radius * col_norms < self.lam1)
+        if self.kind == "nonneg_l1":
+            return ~(witness + radius * col_norms < self.lam1)
+        gn = np.linalg.norm(self._g(witness), axis=1)
+        gcol = np.sqrt(self._g(col_norms ** 2).sum(axis=1))
+        gdiscard = gn + radius * gcol < self.lam1 * self.w
+        return ~np.repeat(gdiscard, len(z) // self.ngroups)
+
+    def compact(self, keep):
+        """(keep widened to whole groups, the penalty on the kept
+        columns)."""
+        if self.kind != "group_l2":
+            return keep, _NpPenalty(self.kind, self.lam1)
+        gkeep = self._g(keep).any(axis=1)
+        keep = np.repeat(gkeep, len(keep) // self.ngroups)
+        return keep, _NpPenalty("group_l2", self.lam1, int(gkeep.sum()),
+                                self.w[gkeep])
 
 
 def _gap_from_parts(r, b, lam2, pen, x, z):
@@ -134,6 +173,117 @@ def _residual_sparse32(As32, xs64, b64):
     for j in np.nonzero(xs64)[0]:
         r += xs64[j] * As32[:, j].astype(np.float64)
     return r
+
+
+def _sparse_residual(A, x, b):
+    """r = A x - b in f64 over the nonzeros of x (A may be f32)."""
+    nz = np.nonzero(x)[0]
+    if len(nz) == 0:
+        return -np.asarray(b, np.float64)
+    return _gather_cols(A, nz)[0] @ x[nz] - b
+
+
+def _witness_and_colnorms(A, r, lam2, x, chunk_cols=2048,
+                          need_colnorms=True):
+    """One chunked f64 pass over the host A (kept f32, cast per chunk):
+    z = -A^T r - lam2 x and sqrt(||A_j||^2 + lam2)."""
+    n = A.shape[1]
+    z = np.empty(n, np.float64)
+    cn = np.empty(n, np.float64) if need_colnorms else None
+    for c0 in range(0, n, chunk_cols):
+        blk = A[:, c0:c0 + chunk_cols].astype(np.float64)
+        z[c0:c0 + chunk_cols] = -(blk.T @ r)
+        if need_colnorms:
+            cn[c0:c0 + chunk_cols] = np.sqrt((blk * blk).sum(axis=0) + lam2)
+    if lam2 != 0.0:
+        z -= lam2 * x
+    return z, cn
+
+
+def _fista64(As, b, lam2, pen_s, xs, tol, max_iters, gap_every,
+             rescreen_cushion: float = 0.0, L: float | None = None):
+    """f64 FISTA with adaptive restart on the compacted problem (the JAX
+    package's ``_fista64``).  Returns (x, keep_idx, iters, rel_gap, gap,
+    primal, r); keep_idx maps the returned columns to the input columns.
+    An f32-stored As runs mixed-precision products (f64 arithmetic on
+    the exact f32 values; the residual over the nonzeros of x).  L=None
+    backtracks (L only doubles) from max_j ||A_j||^2 + lam2, a lower
+    bound of the Lipschitz constant.  rescreen_cushion > 0 re-screens
+    l1/nonneg_l1 columns at every check with the radius sqrt(2 gap) +
+    cushion, which keeps each drop valid for the final witness (the
+    certificate extension of ``polish_fast``)."""
+    keep_idx = np.arange(As.shape[1])
+
+    def products(A_):
+        if A_.dtype == np.float32:
+            return (lambda v: -_gemv_t_mixed(A_, v),
+                    lambda v: _residual_sparse32(A_, v, b))
+        return (lambda v: A_.T @ v), (lambda v: A_ @ v - b)
+
+    matT, resid = products(As)
+    col_norms = np.sqrt(
+        np.einsum("ij,ij->j", As, As, dtype=np.float64) + lam2)
+    backtrack = L is None
+    if backtrack:
+        L = max(float((col_norms ** 2).max()), 1e-12)
+    step = 1.0 / L
+    xs = np.array(xs, np.float64, copy=True)
+    x_prev = xs.copy()
+    r = resid(xs)
+    r_prev = r.copy()
+    t_mom = 1.0
+    k = 0
+    rel = gap = primal = np.inf
+    while k < max_iters:
+        for _ in range(gap_every):
+            t_next = 0.5 * (1.0 + np.sqrt(1.0 + 4.0 * t_mom * t_mom))
+            beta = (t_mom - 1.0) / t_next
+            y = xs + beta * (xs - x_prev)
+            r_y = r + beta * (r - r_prev)
+            g = matT(r_y) + lam2 * y
+            while True:
+                x_new = pen_s.prox(y - step * g, step)
+                r_new = resid(x_new)
+                if not backtrack:
+                    break
+                # majorizer test of the smooth part at y
+                d = x_new - y
+                lhs = 0.5 * (r_new @ r_new + lam2 * (x_new @ x_new))
+                rhs = (0.5 * (r_y @ r_y + lam2 * (y @ y))
+                       + float(g @ d) + 0.5 * L * float(d @ d))
+                if lhs <= rhs * (1.0 + 1e-12) + 1e-300:
+                    break
+                L *= 2.0
+                step = 1.0 / L
+            if float((y - x_new) @ (x_new - xs)) > 0.0:
+                t_next, x_prev, r_prev = 1.0, x_new, r_new
+            else:
+                x_prev, r_prev = xs, r
+            xs, r, t_mom = x_new, r_new, t_next
+            k += 1
+        zs = -matT(r) - lam2 * xs
+        gap, primal, rel, alpha = _gap_from_parts(r, b, lam2, pen_s, xs, zs)
+        if rel <= tol:
+            break
+        if rescreen_cushion > 0.0 and pen_s.kind in ("l1", "nonneg_l1"):
+            radius = np.sqrt(2.0 * max(gap, 0.0)) + rescreen_cushion
+            w = alpha * zs
+            if pen_s.kind == "l1":
+                w = np.abs(w)
+            drop = w + radius * col_norms < pen_s.lam1
+            if drop.any():
+                keep = ~drop
+                As, _ = _gather_cols(As, np.nonzero(keep)[0], As.dtype)
+                xs, x_prev = xs[keep], x_prev[keep]
+                col_norms = col_norms[keep]
+                keep_idx = keep_idx[keep]
+                matT, resid = products(As)
+                # the dropped coordinates were zero: r is unchanged, and L
+                # stays valid (a column subset's norm is no larger)
+                r = resid(xs)
+                r_prev = r.copy()
+                t_mom = 1.0
+    return xs, keep_idx, k, rel, gap, primal, r
 
 
 def _cd64(As32, b, lam2, pen_s, xs, tol, max_sweeps, gap_every=2,
@@ -347,7 +497,8 @@ def polish_support(problem, x, *, tol: float = 1e-6,
             A_host=A_host, b_host=b_host, max_expand=max_expand,
             verbose=verbose)
     if kind not in ("l1", "nonneg_l1"):
-        raise ValueError(f"unknown penalty kind {kind!r}")
+        return polish_fast(problem, x, tol=tol, max_iters=max_iters,
+                           gap_every=gap_every, A_host=A_host, b_host=b_host)
     t0 = time.perf_counter()
     tick = _Ticker(verbose)
     m, n = problem.m, problem.n
@@ -573,3 +724,183 @@ def _polish_support_group(problem, x, *, tol, max_iters, gap_every,
         wall_time_s=time.perf_counter() - t0,
         gather_s=tick.totals.get("gather", 0.0),
     )
+
+
+def _host_inputs(problem, x, b_host):
+    """(lam1, lam2, the _NpPenalty, x in f64, b in f64) on the host."""
+    pen = problem.penalty
+    w = None if pen.weights is None else pen.weights.detach().cpu().numpy()
+    lam1 = float(pen.lam1)
+    x_np = (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+            else np.asarray(x)).astype(np.float64)
+    b = np.asarray(problem.b.cpu().numpy() if b_host is None else b_host,
+                   dtype=np.float64)
+    return (lam1, float(problem.lam2),
+            _NpPenalty(pen.kind, lam1, pen.ngroups, w), x_np, b)
+
+
+def polish(problem, x, *, tol: float = 1e-6, max_iters: int = 20_000,
+           gap_every: int = 10, A_host: np.ndarray | None = None,
+           b_host: np.ndarray | None = None) -> PolishResult:
+    """Refine x to an f64-certified relative gap <= tol: the belt-and-
+    braces oracle (JAX ``solvers/polish.polish``).  Two chunked f64 host
+    passes over A: the gap-safe screen at x (f64 certificate), then, after
+    ``_fista64`` on the kept columns, the full-problem certificate.
+    ``A_host``/``b_host``: host copies of the data (else A is copied from
+    the device)."""
+    t0 = time.perf_counter()
+    # without a host copy, A comes from the device once (column-major)
+    A = (problem.A_rows.detach().cpu().numpy().T if A_host is None
+         else np.asarray(A_host))
+    lam1, lam2, pen, x0, b = _host_inputs(problem, x, b_host)
+    n = A.shape[1]
+    r0 = _sparse_residual(A, x0, b)
+    z, col_norms = _witness_and_colnorms(A, r0, lam2, x0)
+    gap0, _, _, alpha = _gap_from_parts(r0, b, lam2, pen, x0, z)
+    keep, pen_s = pen.compact(pen.keep_mask(z, alpha, gap0, col_norms))
+    idx = np.nonzero(keep)[0]
+    if len(idx) == 0:
+        # x* = 0 is certified: keep one column so the machinery runs
+        keep[:1] = True
+        keep, pen_s = pen.compact(keep)
+        idx = np.nonzero(keep)[0]
+    As, _ = _gather_cols(A, idx)
+    xs, sub_idx, k, _, _, _, r = _fista64(
+        As, b, lam2, pen_s, x0[idx], tol, max_iters, gap_every)
+    idx = idx[sub_idx]
+    x_full = np.zeros(n, dtype=np.float64)
+    x_full[idx] = xs
+    z_f, _ = _witness_and_colnorms(A, r, lam2, x_full, need_colnorms=False)
+    gap, primal, rel, _ = _gap_from_parts(r, b, lam2, pen, x_full, z_f)
+    return PolishResult(
+        x=x_full, rel_gap=float(rel), gap=float(gap), primal=float(primal),
+        kept=int(len(idx)), iterations=k,
+        wall_time_s=time.perf_counter() - t0)
+
+
+def _device_witness(problem, x_np: np.ndarray, b: np.ndarray, lam2: float,
+                    pen: _NpPenalty):
+    """The full-width pieces of ``polish_fast``'s device variant: r = A x
+    - b in f64 on the device over the nonzeros of x; z = -A^T r - lam2 x
+    from K3's f32 A^T r (the lam2 term in f64); the f64 column norms; and
+    a per-column bound err with |z_j - z_exact_j| <= err_j: K3's
+    ``witness_gamma(m) ||A_j|| ||r||`` (its plain version on the CPU is
+    inside it), except on the columns whose bound could reach the dual
+    norm (those of the largest witnesses), which are recomputed exactly in
+    f64 on the device (err_j = 0).  So theta0's scaling can be feasible
+    against the bound without being cut by the margin."""
+    dev = problem.device
+    S = np.nonzero(x_np)[0]
+    r_dev = -torch.as_tensor(b, dtype=torch.float64, device=dev)
+    for c0 in range(0, len(S), 8192):
+        cols = torch.as_tensor(S[c0:c0 + 8192], device=dev)
+        r_dev += problem.A_rows[cols].to(torch.float64).T \
+            @ torch.as_tensor(x_np[S[c0:c0 + 8192]], device=dev)
+    dt = problem.dtype
+    zeros_n = torch.zeros((problem.n,), dtype=dt, device=dev)
+    z = neg_at_r_t(problem.A_t, r_dev.to(dt), zeros_n, 0.0) \
+        .cpu().numpy().astype(np.float64) - lam2 * x_np
+    cn = _col_norms64(problem)
+    eps = float(np.finfo(np.float32).eps)
+    err = witness_gamma(problem.m) * (cn * (1.0 + 4 * eps) + 1e-12) \
+        * float(torch.linalg.vector_norm(r_dev))
+    if pen.kind == "group_l2":
+        raw = np.linalg.norm(pen._g(z), axis=1) / pen.w
+        ub = np.linalg.norm(pen._g(np.abs(z) + err), axis=1) / pen.w
+        gs = problem.n // pen.ngroups
+        near = np.nonzero(ub >= raw.max())[0]
+        near = (near[:, None] * gs + np.arange(gs)).reshape(-1)
+    else:
+        zs = np.abs(z) if pen.kind == "l1" else z
+        near = np.nonzero(zs + err >= zs.max())[0]
+    for c0 in range(0, len(near), 8192):
+        idx = near[c0:c0 + 8192]
+        cols = torch.as_tensor(idx, device=dev)
+        z[idx] = -(problem.A_rows[cols].to(torch.float64) @ r_dev) \
+            .cpu().numpy() - lam2 * x_np[idx]
+        err[idx] = 0.0
+    return r_dev.cpu().numpy(), z, cn, err
+
+
+def polish_fast(problem, x, *, tol: float = 1e-6, max_iters: int = 20_000,
+                gap_every: int = 4, A_host: np.ndarray | None = None,
+                b_host: np.ndarray | None = None) -> PolishResult:
+    """Certified refinement with no full-width f64 pass over A (JAX
+    ``solvers/polish.polish_fast``).
+
+    The dual is 1-strongly concave, so a feasible theta0 with gap g0 lies
+    within sqrt(2 g0) of theta*, and the compact solve's witness within
+    sqrt(2 g_hat) of it: screening at theta0 with the radius
+    R = sqrt(2 g0) + sqrt(2 g_hat) (g_hat <= tol P, known a priori)
+    certifies every discarded column for the final witness, so the compact
+    certificate extends to the full problem.
+
+    With ``A_host`` the screen is one chunked f64 host pass.  Without it,
+    the device variant (``_device_witness``): the f32 witness is K3 on
+    the problem's device (its plain version on the CPU), inflated by K3's
+    rounding bound ``witness_gamma(m) ||A_j|| ||r||`` before use, but
+    exact in f64 on the columns whose bound could reach the dual norm;
+    theta0's scaling is feasible against these bounds, and r and the gap
+    are f64.  The gap is inflated as the JAX package inflates it.  The
+    kept columns come from the device; ``_fista64`` backtracks on them."""
+    t0 = time.perf_counter()
+    m, n = problem.m, problem.n
+    lam1, lam2, pen, x_np0, b64 = _host_inputs(problem, x, b_host)
+    if A_host is not None:
+        r0 = _sparse_residual(A_host, x_np0, b64)
+        z0, cn = _witness_and_colnorms(A_host, r0, lam2, x_np0)
+        eps = float(np.finfo(np.float64).eps)
+        gamma = (math.ceil(math.log2(max(m, 2))) + 4) * eps
+        z_err = None
+    else:
+        r0, z0, cn, z_err = _device_witness(problem, x_np0, b64, lam2, pen)
+        cn = np.sqrt(cn ** 2 + lam2)
+        eps = float(np.finfo(np.float32).eps)
+        gamma = witness_gamma(m)
+    # rounding inflation: |delta z_j| <= gamma ||A_j|| ||r|| (z_err), the
+    # column norms by 4 eps, the gap (as the JAX package inflates it) by
+    # 1.25 and gamma |P|
+    cn_safe = cn * (1.0 + 4 * eps) + 1e-12
+    if z_err is None:
+        z_err = gamma * cn_safe * float(np.linalg.norm(r0))
+    ub = np.abs(z0) + z_err
+    if pen.kind == "nonneg_l1":
+        ub = np.maximum(z0 + z_err, 0.0)
+    # theta0 = alpha0 * rho0 is feasible against the inflated witness
+    gap0, primal0, _, alpha0 = _gap_from_parts(r0, b64, lam2, pen, x_np0,
+                                               ub)
+    gap_safe = 1.25 * abs(gap0) + gamma * abs(primal0)
+    cushion = float(np.sqrt(2.0 * tol * abs(primal0) * 1.5))
+    radius = np.sqrt(2.0 * gap_safe) + cushion
+    if pen.kind == "l1":
+        discard = np.abs(alpha0 * z0) + alpha0 * z_err \
+            + radius * cn_safe < lam1
+    elif pen.kind == "nonneg_l1":
+        discard = alpha0 * (z0 + z_err) + radius * cn_safe < lam1
+    else:
+        gw = np.linalg.norm(pen._g(np.abs(alpha0 * z0) + alpha0 * z_err),
+                            axis=1)
+        gcn = np.sqrt(pen._g(cn_safe ** 2).sum(axis=1))
+        discard = np.repeat(gw + radius * gcn < lam1 * pen.w,
+                            n // pen.ngroups)
+    keep, pen_s = pen.compact(~discard)
+    idx = np.nonzero(keep)[0]
+    if len(idx) == 0:
+        keep[:1] = True
+        keep, pen_s = pen.compact(keep)
+        idx = np.nonzero(keep)[0]
+    if A_host is None:
+        As = _device_columns(problem, idx)
+        if As.dtype != np.float32:
+            As = np.asfortranarray(As, np.float64)
+    else:
+        As, _ = _gather_cols(A_host, idx)
+    xs, sub_idx, k, rel, gap, primal, _ = _fista64(
+        As, b64, lam2, pen_s, x_np0[idx], tol, max_iters, gap_every,
+        rescreen_cushion=cushion)
+    x_full = np.zeros(n, dtype=np.float64)
+    x_full[idx[sub_idx]] = xs
+    return PolishResult(
+        x=x_full, rel_gap=float(rel), gap=float(gap), primal=float(primal),
+        kept=int(len(idx)), iterations=k,
+        wall_time_s=time.perf_counter() - t0)

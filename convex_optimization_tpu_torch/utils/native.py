@@ -4,12 +4,13 @@ Counterpart of ``convex_optimization_tpu/utils/native.py``, for the entry
 points the port's main path uses: ``gaussian`` (threaded normal fill for
 data generation), ``cd64_sweeps``, ``cd64_group_sweeps``,
 ``group_power_l``, ``gather_cols``, ``atr_mixed`` and ``ax_sparse`` (the
-f64 polish).  The same C++ source is built with g++ at
+f64 polish), ``write_matrix`` and ``read_matrix`` (the binary matrix
+store of ``core/datagen.save_instance``).  The same C++ source is built with g++ at
 first use into ``build/torch_native/`` (named by the source's and the
 host's hash, so a stale or foreign build is never loaded) and checked
 against the ABI version below.  Every entry point has a NumPy fallback for
 hosts without a compiler; ``gaussian``'s fallback draws other numbers than
-the native generator.
+the native generator, while the store's writes the same bytes.
 """
 
 from __future__ import annotations
@@ -96,6 +97,10 @@ def _declare(lib) -> None:
                                      ctypes.c_double, ctypes.c_double, _D,
                                      _D]
     lib.co_group_power_l.restype = None
+    lib.co_write_matrix.argtypes = [ctypes.c_char_p, _F, _I64, _I64]
+    lib.co_write_matrix.restype = ctypes.c_int
+    lib.co_read_matrix.argtypes = [ctypes.c_char_p, _F, _I64, _I64]
+    lib.co_read_matrix.restype = ctypes.c_int
 
 
 def _load():
@@ -259,3 +264,62 @@ def ax_sparse(As32: np.ndarray, xs: np.ndarray,
     lib.co_ax_sparse(As32.ctypes.data_as(_F), m, width, xs.ctypes.data_as(_D),
                      b.ctypes.data_as(_D), r.ctypes.data_as(_D))
     return r
+
+
+#: the store's header (``native/co_native.cpp`` ``Header``): magic, rows,
+#: cols, dtype (0 = f32), reserved; the f32 data follows, row-major
+_HEADER = np.dtype([("magic", "S8"), ("rows", "<i8"), ("cols", "<i8"),
+                   ("dtype", "<i4"), ("reserved", "<i4")])
+_MAGIC = b"COTPUM01"
+
+
+def write_matrix(path: str, arr: np.ndarray) -> None:
+    """Write a 2-D (a 1-D array as one row) f32 matrix to ``path``
+    atomically (a temporary file, then a rename), in the store's layout:
+    the 32-byte header, then the data row-major.  The JAX package's
+    ``native.write_matrix`` writes the same bytes."""
+    arr = np.ascontiguousarray(arr, dtype=np.float32)
+    if arr.ndim == 1:
+        arr = arr.reshape(1, -1)
+    lib = _load()
+    if lib is not None:
+        rc = lib.co_write_matrix(os.fsencode(path), arr.ctypes.data_as(_F),
+                                 arr.shape[0], arr.shape[1])
+        if rc != 0:
+            raise IOError(f"co_write_matrix({path}) failed with {rc}")
+        return
+    head = np.zeros((), _HEADER)
+    head["magic"], head["rows"], head["cols"] = _MAGIC, *arr.shape
+    tmp = path + ".tmp"
+    try:
+        with open(tmp, "wb") as f:
+            f.write(head.tobytes())
+            f.write(arr.tobytes())
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def read_matrix(path: str) -> np.ndarray:
+    """The (rows, cols) f32 matrix at ``path``: the store's layout, or an
+    ``.npy`` file (what the JAX package's NumPy fallback writes under the
+    same name)."""
+    with open(path, "rb") as f:
+        raw = f.read(_HEADER.itemsize)
+    if len(raw) < _HEADER.itemsize or raw[:8] != _MAGIC:
+        return np.load(path)
+    head = np.frombuffer(raw, _HEADER)[0]
+    rows, cols = int(head["rows"]), int(head["cols"])
+    if int(head["dtype"]) != 0:
+        raise IOError(f"{path}: dtype {int(head['dtype'])} is not f32")
+    lib = _load()
+    if lib is None:
+        return np.fromfile(path, np.float32, rows * cols,
+                           offset=_HEADER.itemsize).reshape(rows, cols)
+    out = np.empty((rows, cols), dtype=np.float32)
+    rc = lib.co_read_matrix(os.fsencode(path), out.ctypes.data_as(_F),
+                            rows, cols)
+    if rc != 0:
+        raise IOError(f"co_read_matrix({path}) failed with {rc}")
+    return out

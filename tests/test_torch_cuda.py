@@ -1092,3 +1092,52 @@ def test_compact_and_admm_paths_on_card_match_cpu(cuda, kw):
                                   res_c.xs[l], precise=True)
             assert float(gap.rel_gap) <= 2e-5
     torch.testing.assert_close(res_c.xs.cpu(), res_h.xs, rtol=0, atol=5e-3)
+
+
+def test_cli_on_card_polishes_and_certifies(cuda, tmp_path, capsys):
+    """The port CLI on the card: config 1 by bcd_pallas with the polish,
+    the kernels of the solve launched, the snapshot certified in f64."""
+    import json
+
+    from convex_optimization_tpu_torch.cli import main
+    from convex_optimization_tpu_torch.core.datagen import BENCH_CONFIGS
+    from convex_optimization_tpu_torch.core.objective import duality_gap
+    from convex_optimization_tpu_torch.utils.checkpoint import load_snapshot
+
+    snap = str(tmp_path / "c1.npz")
+    _build.reset_launches()
+    assert main(["--config", "config1", "--method", "bcd_pallas",
+                 "--polish", "--stall-checks", "15", "--checkpoint",
+                 snap]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    for name in ("sweep_t", "ax_minus_b_t", "neg_at_r_t", "block_power_t"):
+        assert _build.launches[name] > 0, name
+    assert out["m"] == 500 and out["n"] == 2000
+    problem = BENCH_CONFIGS["config1"].instance(0, device="cpu").problem
+    x = torch.from_numpy(load_snapshot(snap).x)
+    assert float(duality_gap(problem, x, precise=True).rel_gap) <= 1e-6
+    assert out.get("certified", out["converged"])
+
+
+def test_polish_fast_device_variant_matches_host_variant(cuda):
+    """polish_fast with the witness by K3 on the card (launched once) and
+    with the chunked f64 host pass: both certified <= tol with the same
+    support and x within 1e-7; the device screen keeps at least the host
+    screen's columns (its margin is K3's rounding bound)."""
+    from convex_optimization_tpu_torch.api import solve
+    from convex_optimization_tpu_torch.core.datagen import (
+        make_lasso_instance_host,
+    )
+    from convex_optimization_tpu_torch.solvers.polish import polish_fast
+
+    inst, A, b = make_lasso_instance_host(3, 1000, 4000, device=cuda)
+    res = solve(inst.problem, "bcd_pallas", tol=1e-6, max_iters=2000,
+                stall_checks=15)
+    host = polish_fast(inst.problem, res.x, tol=1e-9, A_host=A, b_host=b)
+    _build.reset_launches()
+    dev = polish_fast(inst.problem, res.x, tol=1e-9)
+    assert _build.launches["neg_at_r_t"] == 1
+    assert host.rel_gap <= 1e-9 and dev.rel_gap <= 1e-9
+    np.testing.assert_array_equal(host.x != 0, dev.x != 0)
+    np.testing.assert_allclose(dev.x, host.x, rtol=0, atol=1e-7)
+    assert dev.kept >= host.kept
