@@ -133,6 +133,22 @@ non-zero without one.  Phases, each of which fails the run if it fails:
      path (every converged point's f64 gap <= 1e-4; K2, K3), config 1's
      3-fold CV (K5), config 4's CI twin (K2, K3) and config 5's CI twin
      over a world-size-1 NCCL group (K8 launched in the rank, K1 not).
+  17. screening and the lambda paths on the column layout,
+     SHARD_P spawned gloo ranks sharing the card as in phase 10: first
+     K5, K6 and K7 against their plain versions on a 64-block slice of a
+     rank's config-2 slab at the width the sharded batched path picks
+     (B = 40); then in the ranks, on SHARD_SMALL (l1 and the weighted
+     group_l2), the screened sharded BCD and the 5-point sharded
+     bcd_pallas, fista and bcd_batch paths on the card and on the CPU,
+     each card run held to the CPU run by path_check (every path point
+     on its own); config 3 at full width through solve(bcd_pallas,
+     mesh=group, screen_every=1), x gathered and polished here to an f64
+     rel_gap <= 1e-6, its screened count beside phase 11's; config 2's
+     10-point bcd_batch (K5-K7 on each rank's 625 x 40 x 5000 slab) and
+     fista (K2, K3) paths with phase 7's settings, every converged point's
+     f64 rel_gap <= 1e-4 and the largest |x - phase 7's x| reported.  The
+     ranks' launches on the full-width runs are added to the kernels
+     line.
 
 Every path reads the launch counts set to 0 just before it.  Prints a JSON
 line per measured phase, one for the kernels (each with its time, the
@@ -189,6 +205,15 @@ SHARD_BCD = dict(tol=1e-6, max_iters=20_000, gap_every=10, stall_checks=15,
                  block_size=128)
 SHARD_FISTA = dict(tol=1e-5, max_iters=20_000, gap_every=10,
                    stall_checks=15)
+# phase 17 on SHARD_SMALL, card against CPU: the screened sharded BCD and
+# the sharded paths (5 points to 0.1 lam_max), each path point held to
+# the CPU's by path_check.  The batched path at tol 1e-5: at 1e-6 its
+# last decade reaches the f32 floor, where a one-ulp change of b alone
+# moves a point's last decade by 3 checks (CPU ranks)
+SHARD_SCREEN = dict(SHARD_BCD, screen_every=1)
+SMALL_GRID = dict(path_len=5, lam_min_frac=0.1)
+SMALL_PATHS = (("bcd_pallas", SHARD_BCD), ("fista", SHARD_FISTA),
+               ("bcd_batch", dict(SHARD_BCD, tol=1e-5)))
 # path_check: a small card run against the CPU run of the same input.  The
 # primal objectives at every check agree to PATH_RTOL (one-ulp changes of
 # b move them by 2e-7 on the CPU), and the f32 rel_gap readings, while the
@@ -893,10 +918,10 @@ def checks_s(launches: dict, stats: dict) -> float:
 
 
 def config2_path(problem, gpu: str, power: str, stats: dict
-                 ) -> tuple[dict, float]:
+                 ) -> tuple[dict, float, dict]:
     """Config 2's 10-point bcd_batch lambda path; every point's f64
-    rel_gap must reach the f32 floor.  Returns the launch counts and the
-    wall."""
+    rel_gap must reach the f32 floor.  Returns the launch counts, the
+    wall and the path's xs (on the CPU), sweeps and wall for phase 17."""
     import numpy as np
     import torch
 
@@ -955,17 +980,19 @@ def config2_path(problem, gpu: str, power: str, stats: dict
         "power_limit": power,
     }), flush=True)
     require(max(f64) <= C2_F32_FLOOR, f"config-2 f64 gaps {f64}")
-    return launches, wall
+    return launches, wall, dict(xs=res.xs.cpu(), sweeps=res.sweeps,
+                                wall=wall)
 
 
 def config2_fista_path(problem, gpu: str, power: str, bcd_wall: float,
-                       matvec: dict) -> float:
+                       matvec: dict) -> dict:
     """Config 2's 10-point FISTA lambda path (lambda_path's default
     method) with the bcd_batch path's settings: K2 and K3 launched on
     every step, every converged point's f64 rel_gap at the f32 floor; its
     wall beside the bcd_batch path's, and K2's and K3's launches and their
     share of the wall (launches times their phase-5 time on config 2's
-    A_t, ``matvec``, over the wall).  Returns the wall."""
+    A_t, ``matvec``, over the wall).  Returns the wall, and the path's
+    xs (on the CPU) and steps for phase 17."""
     import torch
 
     import convex_optimization_tpu_torch as cot
@@ -1012,7 +1039,7 @@ def config2_fista_path(problem, gpu: str, power: str, bcd_wall: float,
     }), flush=True)
     bad = [g for g, c in zip(f64, conv) if c and g > C2_F32_FLOOR]
     require(not bad, f"FISTA path: converged points with f64 gaps {bad}")
-    return wall
+    return dict(xs=res.xs.cpu(), sweeps=res.sweeps, wall=wall)
 
 
 def config2_cv(problem, gpu: str, power: str, stats: dict) -> None:
@@ -1339,7 +1366,8 @@ def config4_group_path(problem, A_np, b_np, gpu: str, power: str) -> None:
 def config3(device, gpu: str, power: str) -> dict:
     """Config 3 at full size: nonneg elastic net (lam2 1e-3) at 10k x
     100k, solve(bcd_pallas) with gap-safe screening at every check, then
-    the f64 polish to rel_gap <= 1e-6.  Returns its sweeps and walls."""
+    the f64 polish to rel_gap <= 1e-6.  Returns its sweeps, walls and
+    screened count, and the host arrays and lam1 for phase 17."""
     import numpy as np
     import torch
 
@@ -1389,7 +1417,8 @@ def config3(device, gpu: str, power: str) -> dict:
     require(pr.rel_gap <= C3_SOLVE["tol"],
             f"config 3: f64 certificate {pr.rel_gap}")
     return dict(sweeps=sweeps, solve_wall_s=res.wall_time_s,
-                polish_wall_s=pr.wall_time_s)
+                polish_wall_s=pr.wall_time_s, screened=res.screened,
+                A=A_np, b=b_np, lam1=float(problem.penalty.lam1))
 
 
 def config4(device, gpu: str, power: str, stats: dict) -> dict:
@@ -2539,6 +2568,303 @@ def front_door(device, gpu: str, power: str, c3_walls: dict,
             f"cli config 5 (mesh 1): K8 and not K1, got {launches}")
 
 
+def small_path_runs(run: dict) -> list:
+    """One path run of ``sharded_paths_job`` as ``path_check`` reads it:
+    per point its gathered x, its checks' ``primal`` and ``rel_gap``, and
+    whether it converged."""
+    return [dict(x=run["xs"][l], primal=run["histories"][l]["primal"],
+                 rel_gap=run["histories"][l]["rel_gap"],
+                 converged=bool(run["converged"][l]))
+            for l in range(len(run["xs"]))]
+
+
+def sharded_paths_job(g, A_s, b_s, pens_s, c3, c2) -> dict:
+    """Phase 17 in each of the SHARD_P ranks (gloo, sharing the card).
+    The small instance (SHARD_SMALL; ``pens_s`` its penalties): the
+    screened sharded BCD, the sequential bcd_pallas and fista paths and
+    the batched path, on the card and on the CPU (plain versions); then
+    config 3 screened (``c3``: A from shared memory, b, lam1, lam2) and
+    config 2's bcd_batch and fista paths (``c2``: A, b) at full width."""
+    import dataclasses
+
+    import torch
+
+    import convex_optimization_tpu_torch as cot
+    from convex_optimization_tpu_torch.core.problem import (
+        Problem,
+        problem_from_numpy,
+    )
+    from convex_optimization_tpu_torch.models.penalties import l1, nonneg_l1
+    from convex_optimization_tpu_torch.ops import _build
+    from convex_optimization_tpu_torch.solvers.common import SolverConfig
+
+    def sync():
+        if g.device.type == "cuda":
+            torch.cuda.synchronize(g.device)
+
+    def path_out(pr, wall):
+        return dict(xs=pr.xs.cpu().numpy(), lambdas=pr.lambdas.tolist(),
+                    gaps=pr.gaps.tolist(), iters=pr.iters.tolist(),
+                    converged=pr.converged.tolist(), sweeps=pr.sweeps,
+                    method_used=pr.method_used, wall=wall,
+                    histories=[{k: v.tolist() for k, v in h.items()}
+                               for h in pr.histories],
+                    launches=dict(_build.launches))
+
+    cpu = dataclasses.replace(g, device=torch.device("cpu"))
+    small = {}
+    for where, gg in (("card", g), ("cpu", cpu)):
+        for kind, pen in pens_s.items():
+            p = problem_from_numpy(A_s, b_s, device="cpu", **pen)
+            _build.reset_launches()
+            res = cot.solve(p, "bcd_pallas", mesh=gg, **SHARD_SCREEN)
+            small[(where, "screened", kind)] = dict(
+                x=res.x.cpu().numpy(), k=res.iterations,
+                screened=res.screened, converged=bool(res.converged),
+                primal=res.history["primal"].tolist(),
+                rel_gap=res.history["rel_gap"].tolist(),
+                launches=dict(_build.launches))
+            for method, kw in SMALL_PATHS:
+                _build.reset_launches()
+                t0 = time.perf_counter()
+                pr = cot.lambda_path(p, SolverConfig(**kw), mesh=gg,
+                                     method=method, **SMALL_GRID)
+                small[(where, method, kind)] = path_out(
+                    pr, time.perf_counter() - t0)
+
+    # config 3 at full width, screened, then config 2's paths
+    A3, b3, lam3, lam2 = c3
+    p3 = Problem(A_t=A3.unsqueeze(1), b=b3, penalty=nonneg_l1(lam3),
+                 lam2=lam2)
+    sync()
+    _build.reset_launches()
+    res = cot.solve(p3, "bcd_pallas", mesh=g, **C3_SOLVE)
+    sync()
+    c3_out = dict(k=res.iterations, rel_gap=res.rel_gap,
+                  wall=res.wall_time_s, setup=res.setup_time_s,
+                  screened=res.screened, launches=dict(_build.launches),
+                  x=res.x.cpu().numpy() if g.rank == 0 else None)
+    del p3, res
+    A2, b2 = c2
+    p2 = Problem(A_t=A2.unsqueeze(1), b=b2, penalty=l1(1.0))
+    c2_out = {}
+    for method in ("bcd_batch", "fista"):
+        sync()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        pr = cot.lambda_path(p2, SolverConfig(**C2_CFG), path_len=C2_LEN,
+                             method=method, mesh=g)
+        sync()
+        c2_out[method] = path_out(pr, time.perf_counter() - t0)
+        if g.rank != 0:
+            c2_out[method]["xs"] = None
+    return dict(small=small, c3=c3_out, c2=c2_out)
+
+
+def sharded_paths_phase(device, c3_host: dict, c2_xs: dict, gpu: str,
+                        power: str, stats: dict) -> dict:
+    """Phase 17: gap-safe screening and the lambda paths on the column
+    layout, SHARD_P gloo ranks sharing the card (as phase 10).  Before
+    the ranks, K5-K7 against their plain versions on a 64-block slice of
+    a rank's config-2 slab at the width the sharded batched path picks
+    (B = 40).  ``c3_host``: config 3's host arrays, lam1 and phase 11's
+    screened count; ``c2_xs``: phase 7's xs by method.  Returns the
+    ranks' launches summed over the full-width runs."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import convex_optimization_tpu_torch as cot
+    from convex_optimization_tpu_torch.core.datagen import (
+        make_lasso_instance_host,
+    )
+    from convex_optimization_tpu_torch.parallel.launch import run_ranks
+    from convex_optimization_tpu_torch.solvers.batched_path import (
+        _shard_block,
+    )
+
+    inst2, A2_np, b2_np = make_lasso_instance_host(C2_SEED, C2_M, C2_N,
+                                                   device="cpu")
+    B2 = _shard_block(C2_N, 80, 1, SHARD_P)[0]
+    require(B2 == 40, f"config 2's sharded batched width {B2}")
+    slab = inst2.problem.with_block(B2).A_t[:C2_N // B2 // SHARD_P]
+    compare_batch_kernels(slab[:64].to(device), inst2.problem.b.to(device),
+                          "config2_slab40", stats, False, (gpu, power))
+
+    A_s, b_s, pens_s = shard_small_instance()
+    A3 = torch.from_numpy(np.ascontiguousarray(c3_host["A"].T)) \
+        .share_memory_()
+    A2 = torch.from_numpy(np.ascontiguousarray(A2_np.T)).share_memory_()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = run_ranks(
+            sharded_paths_job, SHARD_P, tmp, A_s, b_s, pens_s,
+            (A3, torch.from_numpy(c3_host["b"]), c3_host["lam1"], C3_LAM2),
+            (A2, torch.from_numpy(b2_np)), device=str(device),
+            backend="gloo", timeout_s=1000, collective_timeout_s=300)
+    ranks_s = time.perf_counter() - t0
+    del A3, A2
+    r0 = ranks[0]
+
+    # the small runs: each card run held to the CPU run of the same input
+    # by path_check, per point for the paths
+    probs = {k: cot.problem_from_numpy(A_s, b_s, device="cpu", **pen)
+             for k, pen in pens_s.items()}
+    small = {}
+    for kind, p in probs.items():
+        runs = {w: r0["small"][(w, "screened", kind)] for w in ("card",
+                                                                 "cpu")}
+        pol = {w: path_run(p, run, A_s, b_s, 1e-6) for w, run in
+               runs.items()}
+        fails = path_check(pol["card"], pol["cpu"], SHARD_SCREEN["tol"],
+                           SHARD_SCREEN["gap_every"])
+        require(not fails, f"sharded screened {kind}: {'; '.join(fails)}")
+        for rank in ranks:
+            lc = rank["small"][("card", "screened", kind)]["launches"]
+            require(lc.get("sweep_slab_t", 0) > 0
+                    and lc.get("sweep_t", 0) == 0,
+                    f"sharded screened {kind}: launches {lc}")
+        require(0 < runs["card"]["screened"] < p.n,
+                f"sharded screened {kind}: {runs['card']['screened']} "
+                "columns screened")
+        small[f"screened/{kind}"] = dict(
+            k=[runs[w]["k"] for w in ("card", "cpu")],
+            screened=[runs[w]["screened"] for w in ("card", "cpu")],
+            path=path_numbers(pol["card"], pol["cpu"], SHARD_SCREEN["tol"]))
+        for method, kw in SMALL_PATHS:
+            card, cpu = (r0["small"][(w, method, kind)]
+                         for w in ("card", "cpu"))
+            want = f"{method}+sharded"
+            require(card["method_used"] == cpu["method_used"] == want,
+                    f"small {method} {kind} path ran {card['method_used']}"
+                    f" / {cpu['method_used']}")
+            np.testing.assert_allclose(card["lambdas"], cpu["lambdas"],
+                                       rtol=1e-5)
+            pts = []
+            for l, (pc, ph) in enumerate(zip(small_path_runs(card),
+                                             small_path_runs(cpu))):
+                # each run polished at its own grid point
+                a = path_run(p.with_lam1(card["lambdas"][l]), pc, A_s, b_s,
+                             1e-6)
+                h = path_run(p.with_lam1(cpu["lambdas"][l]), ph, A_s, b_s,
+                             1e-6)
+                fails = path_check(a, h, kw["tol"], kw["gap_every"])
+                require(not fails, f"small {method} {kind} path point {l}"
+                        f": {'; '.join(fails)}")
+                pts.append(path_numbers(a, h, kw["tol"]))
+            small[f"{method}/{kind}"] = dict(
+                sweeps=[card["sweeps"], cpu["sweeps"]],
+                iters=[card["iters"], cpu["iters"]], points=pts)
+    log(f"# sharded small paths {SHARD_SMALL[1]}x{SHARD_SMALL[2]} "
+        f"P={SHARD_P}, card against CPU: {json.dumps(small)}")
+
+    # config 3 at full width, screened, polished here
+    c3 = r0["c3"]
+    for rank in ranks:
+        lc = rank["c3"]["launches"]
+        require(lc.get("sweep_slab_t", 0) > 0 and lc.get("sweep_t", 0) == 0
+                and lc.get("neg_at_r_t", 0) > 0
+                and lc.get("block_power_t", 0) > 0,
+                f"sharded config 3 launches {lc}")
+        require(rank["c3"]["k"] == c3["k"], "ranks disagree on steps")
+    x3 = c3["x"]
+    require(x3.shape == (N,) and bool(np.isfinite(x3).all())
+            and bool((x3 >= 0).all()), "sharded config 3 x")
+    require(0 < c3["screened"] < N,
+            f"sharded config 3: {c3['screened']} columns screened")
+    p3 = cot.problem_from_numpy(c3_host["A"], c3_host["b"], "nonneg_l1",
+                                c3_host["lam1"], lam2=C3_LAM2, device="cpu")
+    pr = cot.polish_support(p3, torch.from_numpy(x3), tol=C3_SOLVE["tol"],
+                            A_host=c3_host["A"], b_host=c3_host["b"])
+    del p3
+    print(json.dumps({
+        "metric": f"sharded_config3_time_to_certified_1e-06_rel_gap_"
+                  f"nonneg_en_{M}x{N}_screened_{SHARD_P}ranks_1card",
+        "sweeps": c3["k"],
+        "screened_at_last_check": c3["screened"],
+        "phase11_screened": c3_host["screened"],
+        "solve_wall_s": c3["wall"],
+        "polish_wall_s": pr.wall_time_s,
+        "total_s": c3["wall"] + pr.wall_time_s,
+        "ms_per_step": 1e3 * c3["wall"] / max(c3["k"], 1),
+        "k4_setup_s": c3["setup"],
+        "phase11_sweeps": c3_host["sweeps"],
+        "phase11_solve_wall_s": c3_host["solve_wall_s"],
+        "f32_rel_gap": c3["rel_gap"],
+        "f64_rel_gap": pr.rel_gap,
+        "nnz": int(np.count_nonzero(pr.x)),
+        "launches_per_rank": [r["c3"]["launches"] for r in ranks],
+        "gpu": gpu,
+        "power_limit": power,
+    }), flush=True)
+    require(pr.rel_gap <= C3_SOLVE["tol"],
+            f"sharded config 3: f64 certificate {pr.rel_gap}")
+
+    # config 2's paths at full width: every converged point <= the f32
+    # floor in f64, beside phase 7's
+    p2 = cot.problem_from_numpy(A2_np, b2_np, "l1", 1.0, device=device)
+    for method, want_kernels in (
+            ("bcd_batch", PATH_KERNELS + ("neg_at_r_t",)),
+            ("fista", ("ax_minus_b_t", "neg_at_r_t"))):
+        run = r0["c2"][method]
+        require(run["method_used"] == f"{method}+sharded",
+                f"sharded config 2 {method} path ran {run['method_used']}")
+        for rank in ranks:
+            lc = rank["c2"][method]["launches"]
+            for name in want_kernels:
+                require(lc.get(name, 0) > 0,
+                        f"sharded config 2 {method}: {name} launches {lc}")
+            if method == "bcd_batch":
+                require(lc.get("batch_sweep_t", 0) == run["sweeps"],
+                        f"sharded config 2: K5 launches {lc} for "
+                        f"{run['sweeps']} sweeps")
+        xs = torch.from_numpy(run["xs"])
+        require(tuple(xs.shape) == (C2_LEN, C2_N)
+                and bool(torch.isfinite(xs).all()),
+                f"sharded config 2 {method} xs")
+        f64 = [float(cot.duality_gap(p2.with_lam1(lam), xs[l].to(device),
+                                     precise=True).rel_gap)
+               for l, lam in enumerate(run["lambdas"])]
+        bad = [gp for gp, c in zip(f64, run["converged"])
+               if c and gp > C2_F32_FLOOR]
+        dx = [float((xs[l] - c2_xs[method]["xs"][l]).abs().max())
+              for l in range(C2_LEN)]
+        print(json.dumps({
+            "metric": f"sharded_config2_lambda_path_{C2_LEN}pt_{method}_"
+                      f"{C2_M}x{C2_N}_{SHARD_P}ranks_1card",
+            "sweeps": run["sweeps"],
+            "iters": run["iters"],
+            "wall_s": run["wall"],
+            "ms_per_sweep": 1e3 * run["wall"] / max(run["sweeps"], 1),
+            "phase7_sweeps": c2_xs[method]["sweeps"],
+            "phase7_wall_s": c2_xs[method]["wall"],
+            "converged": run["converged"],
+            "returned_rel_gap": run["gaps"],
+            "f64_rel_gap": f64,
+            "max_abs_dx_vs_phase7": max(dx),
+            "dx_vs_phase7": dx,
+            "launches_per_rank": [r["c2"][method]["launches"]
+                                  for r in ranks],
+            "gpu": gpu,
+            "power_limit": power,
+        }), flush=True)
+        require(not bad, f"sharded config 2 {method}: converged points with "
+                f"f64 gaps {bad}")
+        require(any(run["converged"]),
+                f"sharded config 2 {method}: no point converged")
+    del p2
+    torch.cuda.empty_cache()
+    log(f"# phase 17 ranks wall {ranks_s:.1f} s")
+    total: dict = {}
+    for rank in ranks:
+        for lc in [rank["c3"]["launches"]] + [rank["c2"][m]["launches"]
+                                              for m in rank["c2"]]:
+            for name, n in lc.items():
+                total[name] = total.get(name, 0) + n
+    return total
+
+
 def main() -> None:
     t_start = time.perf_counter()
     # one card: the first, unless the caller picked one
@@ -2689,9 +3015,11 @@ def main() -> None:
     small_path_reference(device)
 
     # 7. config 2: the lambda path, then K-fold CV
-    path_launches, c2_wall = config2_path(p2, gpu_name, power_limit, stats)
-    c2_fista_wall = config2_fista_path(p2, gpu_name, power_limit, c2_wall,
-                                       c2_matvec)
+    path_launches, c2_wall, c2_batch = config2_path(p2, gpu_name,
+                                                    power_limit, stats)
+    c2_fista = config2_fista_path(p2, gpu_name, power_limit, c2_wall,
+                                  c2_matvec)
+    c2_fista_wall = c2_fista["wall"]
     config2_cv(p2, gpu_name, power_limit, stats)
     del p2, inst2
     torch.cuda.empty_cache()
@@ -2743,7 +3071,9 @@ def main() -> None:
                                   power_limit)
 
     # 11. config 3: nonneg elastic net with gap-safe screening, certified
-    c3_walls = config3(device, gpu_name, power_limit)
+    c3 = config3(device, gpu_name, power_limit)
+    c3_walls = {k: c3[k] for k in ("sweeps", "solve_wall_s",
+                                   "polish_wall_s")}
 
     # 12. the working-set solvers at the headline
     ws_headline(problem, A_np, b_np, gpu_name, power_limit, main_walls)
@@ -2767,6 +3097,14 @@ def main() -> None:
     torch.cuda.empty_cache()
     front_door(device, gpu_name, power_limit, c3_walls, c2_fista_wall)
 
+    # 17. screening and the lambda paths on the column layout: SHARD_P
+    # ranks on the card, config 3 and config 2 at full width
+    torch.cuda.empty_cache()
+    shard_path_launches = sharded_paths_phase(
+        device, c3, {"bcd_batch": c2_batch, "fista": c2_fista},
+        gpu_name, power_limit, stats)
+    del c3
+
     require(all(math.isfinite(stats[k]["ms"]) for k in KERNELS),
             "kernel times")
     log(f"# chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
@@ -2776,6 +3114,9 @@ def main() -> None:
                                                         "sweep_slab_t")})
     kernel_launches["sweep_tiled_t"] = k9_launches["sweep_tiled_t"]
     kernel_launches["sweep_slab_t"] = slab_launches
+    # phase 17's ranks launched K2-K8 on their slabs
+    for name in KERNELS:
+        kernel_launches[name] += shard_path_launches.get(name, 0)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": kernel_launches[name],

@@ -9,6 +9,8 @@ lambda path and CV, JSONL metrics, snapshots and resume, plus ``--device``.
     python -m convex_optimization_tpu_torch.cli --config config1 --ci --device cpu
     python -m convex_optimization_tpu_torch.cli --config config2 --jsonl out.jsonl
     python -m convex_optimization_tpu_torch.cli --config config5 --ci --mesh 1 --method bcd_pallas
+    python -m convex_optimization_tpu_torch.cli --config config3 --ci --device cpu --mesh 2
+    python -m convex_optimization_tpu_torch.cli --config config2 --ci --device cpu --mesh 2 --lambda-path 4
 
 Every instance, named config or custom size, is drawn by the host
 generator (``core/datagen.make_lasso_instance_host``), whose numbers equal
@@ -27,7 +29,7 @@ import os
 import sys
 import tempfile
 
-ITEM_13 = "ROADMAP queue 1, item 13"
+ITEM_13 = "ROADMAP queue 1, item 13b"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -72,7 +74,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "--lambda-path, default 10)")
     p.add_argument("--mesh", type=int, default=0,
                    help="shard A's columns over this many ranks: one per "
-                        "card over NCCL, or gloo ranks with --device cpu")
+                        "card over NCCL, or gloo ranks with --device cpu; "
+                        "a solve (screened with --screen or config 3) or "
+                        "a --lambda-path runs on the slabs")
     p.add_argument("--mesh-axis", default="blocks",
                    choices=["blocks", "rows"],
                    help="blocks = column sharding (an m-vector all-reduce "
@@ -122,11 +126,38 @@ def _mesh_rank_job(g, problem, method: str, solve_kw: dict, x0):
     return res, dict(_build.launches)
 
 
+def _mesh_path_rank_job(g, problem, cfg, path_kw: dict):
+    """One rank of ``--mesh --lambda-path``: the sharded path on this
+    rank's device.  Returns (the PathResult on the CPU, rank 0 only; this
+    rank's kernel launch counts)."""
+    from convex_optimization_tpu_torch.ops import _build
+    from convex_optimization_tpu_torch.solvers.lambda_path import lambda_path
+
+    pr = lambda_path(problem.to(g.device), cfg, mesh=g, **path_kw)
+    if g.rank != 0:
+        pr = None
+    else:
+        pr = pr._replace(lambdas=pr.lambdas.cpu(), xs=pr.xs.cpu(),
+                         gaps=pr.gaps.cpu(), iters=pr.iters.cpu(),
+                         converged=pr.converged.cpu())
+    return pr, dict(_build.launches)
+
+
 def _solve_mesh(problem, P: int, device, solve_kw: dict):
-    """The column-sharded solve over P spawned ranks (one per card over
-    NCCL, or gloo ranks on the CPU), the problem passed as shared memory.
-    The ranks' kernel launches are added to this process's counts
-    (``ops/_build.launches``): they ran on its behalf."""
+    """The column-sharded solve over P spawned ranks (``_run_mesh``)."""
+    kw = dict(solve_kw)
+    method, x0 = kw.pop("method"), kw.pop("x0", None)
+    if x0 is not None:
+        x0 = x0.cpu()
+    return _run_mesh(problem, P, device, _mesh_rank_job, method, kw, x0)
+
+
+def _run_mesh(problem, P: int, device, job, *args):
+    """Rank 0's result of ``job(group, problem, *args)`` over P spawned
+    ranks (one per card over NCCL, or gloo ranks on the CPU), the problem
+    passed as shared memory.  The ranks' kernel launches are added to
+    this process's counts (``ops/_build.launches``): they ran on its
+    behalf."""
     import torch
 
     from convex_optimization_tpu_torch.ops import _build
@@ -139,17 +170,12 @@ def _solve_mesh(problem, P: int, device, solve_kw: dict):
         devices = [f"cuda:{r}" for r in range(P)]
     else:
         devices = "cpu"
-    kw = dict(solve_kw)
-    method, x0 = kw.pop("method"), kw.pop("x0", None)
     shared = dataclasses.replace(
         problem.to("cpu"),
         A_t=problem.A_t.to("cpu", copy=True).share_memory_(),
         b=problem.b.to("cpu", copy=True).share_memory_())
-    if x0 is not None:
-        x0 = x0.cpu()
     with tempfile.TemporaryDirectory() as tmp:
-        results = run_ranks(_mesh_rank_job, P, tmp, shared, method, kw, x0,
-                            device=devices)
+        results = run_ranks(job, P, tmp, shared, *args, device=devices)
     for _, launches in results:
         _build.launches.update(launches)
     return results[0][0]
@@ -193,13 +219,6 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     mesh_n = args.mesh
-    if mesh_n and screen:
-        raise NotImplementedError(
-            "gap-safe screening in the sharded solvers is not ported yet "
-            f"({ITEM_13}); drop --screen (config 3 screens by default)")
-    if mesh_n and lambda_path and not args.cv:
-        raise NotImplementedError(
-            f"sharded paths are not ported yet ({ITEM_13}); drop --mesh")
 
     if cfg is not None:
         inst, A_host, b_host = cfg.instance_host(
@@ -278,7 +297,11 @@ def main(argv=None) -> int:
         if args.path_compact:
             path_kw["compact"] = True
         with M.WallTimer(device) as t:
-            pr = run_path(problem, scfg, path_len=lambda_path, **path_kw)
+            if mesh_n:
+                pr = _run_mesh(problem, mesh_n, device, _mesh_path_rank_job,
+                               scfg, dict(path_kw, path_len=lambda_path))
+            else:
+                pr = run_path(problem, scfg, path_len=lambda_path, **path_kw)
         nnz = torch.count_nonzero(pr.xs, dim=1).tolist()
         rows = []
         for i in range(lambda_path):

@@ -1,8 +1,8 @@
 """Column-sharded FISTA and BCD over ``torch.distributed``.
 
 Counterpart of ``convex_optimization_tpu/parallel/sharded.py`` (its column
-layout; the row- and grid-sharded solvers and the sharded lambda path are
-not ported yet).  A's columns are split over the ranks of a
+layout; the row- and grid-sharded solvers are not ported yet, ROADMAP
+queue 1, item 13b).  A's columns are split over the ranks of a
 ``ColumnGroup``: each rank owns a contiguous slab of ``A_t`` blocks and
 the matching slice of x; the residual r = A x - b is replicated and kept
 in consensus by one all-reduce of an m-vector per iteration.
@@ -10,8 +10,13 @@ in consensus by one all-reduce of an m-vector per iteration.
 Every rank runs the same host loop (one sync per check); where the JAX
 package runs one shard_map'd program, the ranks here meet only at the
 collectives.  The check's numbers come from group rank 0 to every rank,
-so that the ranks make the same stop decision even where the ring
-consensus leaves their residuals a rounding apart.
+so that the ranks make the same stop decision (and, with
+``screen_every > 0``, screen against the same gap-safe sphere) even
+where the ring consensus leaves their residuals a rounding apart.
+
+The set-up (block width, the slab, K4 or L_total, the slab's column
+norms) is built once by ``prepare_sharded`` and reused by every point of
+a sharded lambda path (``solvers/lambda_path.py``).
 
     FISTA step:  K3 on the slab, prox, K2 on the slab; one all-reduce of
                  [A_loc x_new, <y - x_new, x_new - x>] (m + 1 floats)
@@ -20,19 +25,23 @@ consensus leaves their residuals a rounding apart.
                  (m + 3 floats), then the line search on the summed
                  direction with its 1/P floor
     check:       K3 on the slab, pmax of the dual norm, psum of ||x||^2,
-                 g(x) and nnz
+                 g(x) and nnz; with screening, the slab's columns tested
+                 against rank 0's gap, alpha, primal and ||r||
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
-from convex_optimization_tpu_torch.core.objective import gap_from_parts
+from convex_optimization_tpu_torch.core.objective import (
+    gap_from_parts,
+    lambda_max_t,
+)
 from convex_optimization_tpu_torch.core.problem import Problem
 from convex_optimization_tpu_torch.models.penalties import Penalty
 from convex_optimization_tpu_torch.ops import _build
@@ -65,7 +74,7 @@ from convex_optimization_tpu_torch.parallel.collectives import (
     ring_psum,
     ring_psum_chunked,
 )
-from convex_optimization_tpu_torch.parallel.mesh import ColumnGroup
+from convex_optimization_tpu_torch.parallel.mesh import BLOCKS, ColumnGroup
 from convex_optimization_tpu_torch.solvers.bcd import pick_block_size
 from convex_optimization_tpu_torch.solvers.common import (
     SolverConfig,
@@ -79,6 +88,7 @@ from convex_optimization_tpu_torch.solvers.fista import (
     init_state,
     momentum_point,
 )
+from convex_optimization_tpu_torch.utils.device import sync as _sync
 
 
 def _consensus_fn(cfg: SolverConfig, g: ColumnGroup):
@@ -134,11 +144,15 @@ def shard_columns(problem: Problem, g: ColumnGroup, block: int) -> Problem:
                    lam2=problem.lam2)
 
 
-def _gap_check_local(loc: Problem, s: SolveState, g: ColumnGroup
-                     ) -> SolveState:
+def _gap_check_local(loc: Problem, s: SolveState, g: ColumnGroup,
+                     col_norms: torch.Tensor | None = None) -> SolveState:
     """Duality gap from the ranks' combined partials (pmax of the dual
     norm; psum of ||x||^2, g(x) and nnz), then record_check with rank 0's
-    numbers: one host sync."""
+    numbers: one host sync.  With ``col_norms`` (the slab's augmented
+    column norms) the gap-safe screen tightens the slab's keep mask, as
+    the JAX package's check does (its ``parallel/sharded.py:99-103``),
+    with rank 0's gap, alpha, primal and ||r||: every rank tests its
+    columns against the same sphere."""
     x, r, pen = s.x, s.r, loc.penalty
     z = neg_at_r_t(loc.A_t, r, x, loc.lam2)
     dn = pmax(pen.dual_norm(z).reshape(1), g)[0]
@@ -146,31 +160,41 @@ def _gap_check_local(loc: Problem, s: SolveState, g: ColumnGroup
         torch.dot(x, x), torch.as_tensor(pen.value(x), dtype=x.dtype,
                                          device=x.device),
         count_nnz(x).to(x.dtype)]), g)
+    rr = torch.dot(r, r)
     info = gap_from_parts(rho_dot_b=-torch.dot(r, loc.b),
-                          rho_aug_sq=torch.dot(r, r) + loc.lam2 * x_sq,
+                          rho_aug_sq=rr + loc.lam2 * x_sq,
                           g_value=g_val, dual_norm_value=dn)
-    vals = broadcast0(torch.stack([info.gap, info.primal, info.dual,
-                                   info.rel_gap, nnz]), g).tolist()
+    bc = broadcast0(torch.stack([info.gap, info.primal, info.dual,
+                                 info.rel_gap, nnz, info.alpha,
+                                 torch.sqrt(rr)]), g)
+    keep = s.keep_mask
+    if col_norms is not None:
+        keep = keep & pen.screen_keep(z, bc[5], bc[0], col_norms,
+                                      r_norm=bc[6], primal=bc[1])
+    vals = bc.tolist()
     host = dict(zip(("gap", "primal", "dual", "rel_gap"), vals[:4]))
-    return record_check(s, host, x, int(vals[4]), s.keep_mask)
+    return record_check(s, host, x, int(vals[4]), keep)
 
 
 def _run(loc: Problem, state: SolveState, cfg: SolverConfig, g: ColumnGroup,
-         step) -> SolveState:
+         step, col_norms: torch.Tensor | None) -> SolveState:
     """The check loop of both solvers: ``gap_every`` steps, one check."""
-    state = _gap_check_local(loc, state, g)
+    state = _gap_check_local(loc, state, g, col_norms)
     while continue_loop(state, cfg):
         for _ in range(cfg.gap_every):
             state = step(state)
-        state = _gap_check_local(loc, state, g)
+        state = _gap_check_local(loc, state, g, col_norms)
     return state
 
 
 def sharded_fista(loc: Problem, L_total: float, state: SolveState,
-                  cfg: SolverConfig, g: ColumnGroup) -> SolveState:
+                  cfg: SolverConfig, g: ColumnGroup,
+                  col_norms: torch.Tensor | None = None) -> SolveState:
     """FISTA (ISTA without momentum) on this rank's slab ``loc``
     (``shard_columns``) with the global step 1 / L_total; ``state`` holds
-    the slab's x and the replicated r."""
+    the slab's x and the replicated r.  ``col_norms``: the slab's
+    augmented column norms, to screen at every check (None: no
+    screening)."""
     L_total = float(L_total)
     allreduce = _consensus_fn(cfg, g)
     restart = cfg.momentum and cfg.adaptive_restart
@@ -190,7 +214,7 @@ def sharded_fista(loc: Problem, L_total: float, state: SolveState,
         return finish_step(s, cfg, t_next, y, x_new, tot[:m] - loc.b,
                            tot[m] if restart else None)
 
-    return _run(loc, state, cfg, g, step)
+    return _run(loc, state, cfg, g, step, col_norms)
 
 
 def _slab_sweep(loc: Problem, B: int, cfg: SolverConfig):
@@ -213,7 +237,8 @@ def _slab_sweep(loc: Problem, B: int, cfg: SolverConfig):
 
 
 def sharded_bcd(loc: Problem, block_L: torch.Tensor, state: SolveState,
-                cfg: SolverConfig, g: ColumnGroup) -> SolveState:
+                cfg: SolverConfig, g: ColumnGroup,
+                col_norms: torch.Tensor | None = None) -> SolveState:
     """Block-CD: Gauss-Seidel within this rank's slab ``loc``, Jacobi
     across ranks.  ``block_L`` holds the slab's per-block ||A_j||^2 (no
     lam2).  Each step sweeps the slab against the consensus residual, sums
@@ -221,7 +246,8 @@ def sharded_bcd(loc: Problem, block_L: torch.Tensor, state: SolveState,
     direction: the exact line search of the convex bound, floored at 1/P
     (Jacobi averaging, always a descent).  With ``consensus="ring"`` the
     slab sweeps in two halves and the first half's ring is in flight while
-    the second half sweeps."""
+    the second half sweeps.  ``col_norms`` as in ``sharded_fista``: the
+    sweeps freeze the screened coordinates through their keep mask."""
     nb_loc = block_L.shape[0]
     B = loc.n // nb_loc
     loc = loc.with_block(B)
@@ -272,7 +298,7 @@ def sharded_bcd(loc: Problem, block_L: torch.Tensor, state: SolveState,
         return s._replace(x=x + gamma * (x_new - x), r=r + gamma * dr,
                           k=s.k + 1)
 
-    return _run(loc, state, cfg, g, step)
+    return _run(loc, state, cfg, g, step, col_norms)
 
 
 def _sharded_spectral_norm_sq(loc: Problem, g: ColumnGroup) -> torch.Tensor:
@@ -289,29 +315,40 @@ def _sharded_spectral_norm_sq(loc: Problem, g: ColumnGroup) -> torch.Tensor:
         lambda a, b: psum(torch.dot(a, b).reshape(1), g)[0])
 
 
-def solve_sharded(problem: Problem, method: str, g: ColumnGroup, x0=None,
-                  cfg: Optional[SolverConfig] = None, **cfg_overrides):
-    """The column-sharded solve behind ``api.solve(mesh=g)``: every rank
-    of ``g`` calls it with the same ``problem`` (on the CPU or on
-    ``g.device``) and gets the same Result, whose x is gathered from the
-    slabs; ``x0`` is the full start.  BCD's block_L is K4 on each slab,
-    FISTA's L_total the power iteration over the slabs."""
-    from convex_optimization_tpu_torch.api import Result
+def sharded_lambda_max(loc: Problem, g: ColumnGroup,
+                       b: torch.Tensor | None = None) -> float:
+    """lambda_max of the whole problem from the slabs: the raw dual norm
+    of the slab's A^T b (K3 on the slab, ``lambda_max_t``), then pmax.
+    ``b`` replaces the problem's (a row-masked b)."""
+    lm = lambda_max_t(loc.A_t, loc.b if b is None else b, loc.penalty)
+    return float(pmax(lm.reshape(1), g)[0])
 
-    cfg = SolverConfig() if cfg is None else cfg
-    if method == "ista":
-        cfg_overrides.setdefault("momentum", False)
-    if method == "bcd_pallas":
-        method = "bcd"
-        cfg_overrides.setdefault("use_pallas", True)
-    if cfg_overrides:
-        cfg = dataclasses.replace(cfg, **cfg_overrides)
-    if method not in ("fista", "ista", "bcd"):
-        raise ValueError(f"unknown sharded method {method!r}")
-    if cfg.screen_every > 0:
+
+class ShardedSetup(NamedTuple):
+    """What a sharded solve builds once; a sharded lambda path reuses it
+    at every point."""
+
+    loc: Problem                    # this rank's slab at the sweep's width
+    method: str                     # "fista", "ista" or "bcd"
+    cfg: SolverConfig
+    lipschitz: object               # BCD: the slab's block_L (K4); FISTA:
+                                    # L_total (float)
+    col_norms: torch.Tensor | None  # the slab's augmented column norms
+                                    # (screen_every > 0), else None
+    setup_s: float                  # seconds of K4 or L_total and the norms
+
+
+def prepare_sharded(problem: Problem, method: str, cfg: SolverConfig,
+                    g: ColumnGroup) -> ShardedSetup:
+    """The set-up of ``method`` ("fista", "ista" or "bcd") on this rank: the block width (K1's
+    pad-free width for ``bcd`` with ``use_pallas``, as ``solve`` picks it
+    on one device), the slab (``shard_columns``), the kernel build, then,
+    timed, K4 on the slab (BCD) or L_total by the power iteration over the
+    slabs (FISTA), and the slab's column norms when the checks screen."""
+    if getattr(g, "axis", None) != BLOCKS:
         raise NotImplementedError(
-            "gap-safe screening in the sharded solvers is not ported yet "
-            "(ROADMAP queue 1, item 13); pass screen_every=0")
+            "only the column layout is ported; the row and grid layouts "
+            "are not yet (ROADMAP queue 1, item 13b)")
     P = g.size
     if problem.n % P != 0:
         raise ValueError(f"n={problem.n} must divide over {P} shards")
@@ -329,38 +366,87 @@ def solve_sharded(problem: Problem, method: str, g: ColumnGroup, x0=None,
     dev = g.device
     if dev.type == "cuda":
         _build.load()
-
-    state = init_state(loc, None)
-    if x0 is not None:
-        x = x0[g.rank * n_loc:(g.rank + 1) * n_loc].to(
-            device=dev, dtype=loc.dtype).clone()
-        r = psum(ax_minus_b_t(loc.A_t, x, torch.zeros_like(loc.b)), g) \
-            - loc.b
-        state = state._replace(x=x, r=r, x_best=x, x_prev=x, r_prev=r)
-
-    def sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
-    sync()
+    _sync(dev)
     t0 = time.perf_counter()
     if method == "bcd":
-        block_L = (block_power_t(loc.A_t) if cfg.use_pallas
-                   else block_power_t_plain(loc.A_t))
+        lip = (block_power_t(loc.A_t) if cfg.use_pallas
+               else block_power_t_plain(loc.A_t))
     else:
-        L_total = float(_sharded_spectral_norm_sq(loc, g)) + loc.lam2
-    sync()
-    setup_s = time.perf_counter() - t0
+        lip = float(_sharded_spectral_norm_sq(loc, g)) + loc.lam2
+    col_norms = loc.col_norms() if cfg.screen_every > 0 else None
+    _sync(dev)
+    return ShardedSetup(loc=loc, method=method, cfg=cfg, lipschitz=lip,
+                        col_norms=col_norms,
+                        setup_s=time.perf_counter() - t0)
+
+
+def sharded_state(setup: ShardedSetup, g: ColumnGroup,
+                  x_loc: torch.Tensor | None = None) -> SolveState:
+    """A fresh state (counters, history and keep mask reset) at the slab's
+    x ``x_loc`` (zeros when None), its residual by K2 on the slab and a
+    psum."""
+    loc = setup.loc
+    state = init_state(loc, None)
+    if x_loc is None:
+        return state
+    x = x_loc.to(device=loc.device, dtype=loc.dtype).clone()
+    r = psum(ax_minus_b_t(loc.A_t, x, torch.zeros_like(loc.b)), g) - loc.b
+    return state._replace(x=x, r=r, x_best=x, x_prev=x, r_prev=r)
+
+
+def run_sharded(setup: ShardedSetup, state: SolveState, g: ColumnGroup,
+                lam1: float | None = None) -> SolveState:
+    """The sharded solver of ``setup`` from ``state``, at ``lam1`` when
+    given (a path point), else at the problem's."""
+    loc = setup.loc if lam1 is None else setup.loc.with_lam1(lam1)
+    solver = sharded_bcd if setup.method == "bcd" else sharded_fista
+    return solver(loc, setup.lipschitz, state, setup.cfg, g,
+                  setup.col_norms)
+
+
+def screened_count(state: SolveState, g: ColumnGroup) -> int:
+    """Columns of the whole problem that the last check froze."""
+    keep = state.keep_mask
+    frozen = (keep.numel() - keep.sum()).to(torch.float64).reshape(1)
+    return int(psum(frozen, g)[0])
+
+
+def solve_sharded(problem: Problem, method: str, g: ColumnGroup, x0=None,
+                  cfg: Optional[SolverConfig] = None, **cfg_overrides):
+    """The column-sharded solve behind ``api.solve(mesh=g)``: every rank
+    of ``g`` calls it with the same ``problem`` (on the CPU or on
+    ``g.device``) and gets the same Result, whose x is gathered from the
+    slabs; ``x0`` is the full start.  BCD's block_L is K4 on each slab,
+    FISTA's L_total the power iteration over the slabs.  With
+    ``screen_every > 0`` every check screens (``Result.screened``: the
+    columns of the whole problem the last check froze)."""
+    from convex_optimization_tpu_torch.api import Result
+
+    cfg = SolverConfig() if cfg is None else cfg
+    if method == "ista":
+        cfg_overrides.setdefault("momentum", False)
+    if method == "bcd_pallas":
+        method = "bcd"
+        cfg_overrides.setdefault("use_pallas", True)
+    if cfg_overrides:
+        cfg = dataclasses.replace(cfg, **cfg_overrides)
+    if method not in ("fista", "ista", "bcd"):
+        raise ValueError(f"unknown sharded method {method!r}")
+    setup = prepare_sharded(problem, method, cfg, g)
+    n_loc = setup.loc.n
+    state = sharded_state(
+        setup, g,
+        None if x0 is None else x0[g.rank * n_loc:(g.rank + 1) * n_loc])
+    dev = g.device
+    _sync(dev)
     t1 = time.perf_counter()
-    if method == "bcd":
-        final = sharded_bcd(loc, block_L, state, cfg, g)
-    else:
-        final = sharded_fista(loc, L_total, state, cfg, g)
-    sync()
+    final = run_sharded(setup, state, g)
+    _sync(dev)
     wall = time.perf_counter() - t1
     return Result(
         x=all_gather(final.x_best, g), gap=final.best_gap,
         rel_gap=final.best_rel_gap, primal=final.best_primal,
         iterations=final.k, converged=final.best_rel_gap <= cfg.tol,
         wall_time_s=wall, history=final.history.trimmed(),
-        method=f"sharded_{method}", config=cfg, setup_time_s=setup_s)
+        method=f"sharded_{method}", config=cfg, setup_time_s=setup.setup_s,
+        screened=screened_count(final, g) if cfg.screen_every > 0 else 0)

@@ -20,6 +20,15 @@ warm-starts rho too), and the compacting path screens each point at its
 warm start (K2/K3 on the full ``A_t``) and runs FISTA on the kept
 columns.  Every warm start's residual comes from K2, and the grid's
 lam_max from the witness kernel K3 (``lambda_max_t``).
+
+With ``mesh`` (a ``parallel.mesh.ColumnGroup``) the path runs
+column-sharded, as the JAX package's ``_lambda_path_sharded`` (its
+``lambda_path.py:416-525``, the column layout): 'fista' / 'ista' /
+'bcd' / 'bcd_pallas' solve the points one after another on the slabs
+(``parallel/sharded.py``: one set-up for the whole path; each point
+starts at the previous point's best iterate with its counters and keep
+mask reset) and return every point's gathered best iterate; 'bcd_batch'
+runs the grid at once on the slabs (``solvers/batched_path.py``).
 """
 
 from __future__ import annotations
@@ -67,6 +76,11 @@ class PathResult(NamedTuple):
     kept: torch.Tensor | None = None    # (path_len,) columns solved per
                                         # point (compact and working-set
                                         # paths; else None)
+    histories: list | None = None   # per point, its checks' ``primal``
+                                    # and ``rel_gap`` (numpy arrays; the
+                                    # sharded and batched paths, for
+                                    # chip_smoke.path_check; not in the
+                                    # JAX package)
 
 
 def path_grid(lmax: float, path_len: int, lam_min_frac: float,
@@ -109,8 +123,18 @@ def lambda_path(
             "compact=False, or method='bcd_ws' for support-compacted path "
             "points.")
     if mesh is not None:
-        raise NotImplementedError(
-            "sharded paths are not ported yet (ROADMAP queue 1, item 13)")
+        if compact:
+            raise NotImplementedError("compact paths are single-device")
+        if method == "bcd_batch":
+            from convex_optimization_tpu_torch.solvers.batched_path import (
+                batched_lambda_path,
+            )
+
+            return batched_lambda_path(problem, cfg, path_len=path_len,
+                                       lam_min_frac=lam_min_frac,
+                                       lambdas=lambdas, mesh=mesh)
+        return _sharded_path(problem, cfg, mesh, path_len, lam_min_frac,
+                             lambdas, method)
     if method not in ("fista", "ista", "bcd", "bcd_pallas", "bcd_batch",
                       "fista_ws", "bcd_ws", "admm"):
         raise ValueError(f"unknown method {method!r}")
@@ -150,17 +174,18 @@ def lambda_path(
     return _sequential_path(problem, cfg, lambdas, method)
 
 
-def _path_result(problem: Problem, cfg: SolverConfig, lambdas, xs, gaps,
-                 iters, method: str, kept=None) -> PathResult:
-    dev = problem.device
-    gaps_t = torch.tensor(gaps, dtype=problem.dtype, device=dev)
+def _path_result(cfg: SolverConfig, lambdas: torch.Tensor, xs, gaps, iters,
+                 method: str, kept=None, histories=None) -> PathResult:
+    dev = lambdas.device
+    gaps_t = torch.tensor(gaps, dtype=lambdas.dtype, device=dev)
     return PathResult(
         lambdas=lambdas, xs=torch.stack(xs), gaps=gaps_t,
         iters=torch.tensor(iters, dtype=torch.int64, device=dev),
         method_used=method, converged=gaps_t <= cfg.tol,
         sweeps=sum(iters),
         kept=(None if kept is None
-              else torch.tensor(kept, dtype=torch.int64, device=dev)))
+              else torch.tensor(kept, dtype=torch.int64, device=dev)),
+        histories=histories)
 
 
 def _fista_path(problem: Problem, cfg: SolverConfig, lambdas: torch.Tensor,
@@ -185,7 +210,7 @@ def _fista_path(problem: Problem, cfg: SolverConfig, lambdas: torch.Tensor,
         xs.append(state.x)
         gaps.append(state.rel_gap)
         iters.append(state.k)
-    return _path_result(problem, cfg, lambdas, xs, gaps, iters, method)
+    return _path_result(cfg, lambdas, xs, gaps, iters, method)
 
 
 def _sequential_path(problem: Problem, cfg: SolverConfig,
@@ -226,7 +251,7 @@ def _sequential_path(problem: Problem, cfg: SolverConfig,
         xs.append(state.x_best)
         gaps.append(state.best_rel_gap)
         iters.append(state.k)
-    return _path_result(problem, cfg, lambdas, xs, gaps, iters, method)
+    return _path_result(cfg, lambdas, xs, gaps, iters, method)
 
 
 def _ws_path(problem: Problem, cfg: SolverConfig, lambdas: torch.Tensor,
@@ -247,7 +272,7 @@ def _ws_path(problem: Problem, cfg: SolverConfig, lambdas: torch.Tensor,
         gaps.append(float(info.rel_gap))
         iters.append(meta["inner_iters"])
         kept.append(meta["ws_size"])
-    return _path_result(problem, cfg, lambdas, xs, gaps, iters, method, kept)
+    return _path_result(cfg, lambdas, xs, gaps, iters, method, kept)
 
 
 def _admm_path(problem: Problem, cfg: SolverConfig, lambdas: torch.Tensor,
@@ -270,7 +295,7 @@ def _admm_path(problem: Problem, cfg: SolverConfig, lambdas: torch.Tensor,
         xs.append(state.x_best)
         gaps.append(state.best_rel_gap)
         iters.append(state.k)
-    return _path_result(problem, cfg, lambdas, xs, gaps, iters, "admm")
+    return _path_result(cfg, lambdas, xs, gaps, iters, "admm")
 
 
 def _bucket(k: int, n: int) -> int:
@@ -346,5 +371,50 @@ def _compact_path(problem: Problem, cfg: SolverConfig,
         gaps.append(state.rel_gap)
         iters.append(state.k)
         kept.append(int(idx_t.numel()))
-    return _path_result(problem, cfg, lambdas, xs, gaps, iters,
+    return _path_result(cfg, lambdas, xs, gaps, iters,
                         "fista_compact", kept)
+
+
+def _sharded_path(problem: Problem, cfg: SolverConfig, g, path_len: int,
+                  lam_min_frac: float, lambdas, method: str) -> PathResult:
+    """The JAX package's sharded sequential path (its
+    ``lambda_path.py:416-525``, column layout): the sharded set-up once
+    (``parallel/sharded.prepare_sharded``), then each point from the
+    previous point's best iterate on the slab, with a fresh residual (K2
+    on the slab and a psum), the counters and the keep mask reset.  As in
+    the JAX package, 'ista' sets no momentum=False and the BCD methods
+    differ in ``use_pallas``.  The stop decisions inside each point are
+    rank 0's (``_gap_check_local``), so every rank leaves every point at
+    the same check."""
+    from convex_optimization_tpu_torch.parallel import sharded as sh
+    from convex_optimization_tpu_torch.parallel.collectives import (
+        all_gather,
+    )
+
+    if method not in ("fista", "ista", "bcd", "bcd_pallas"):
+        raise ValueError(
+            f"sharded lambda_path supports 'fista'/'ista'/'bcd'/"
+            f"'bcd_pallas' (and 'bcd_batch' via its own route); "
+            f"got {method!r}")
+    is_bcd = method in ("bcd", "bcd_pallas")
+    if is_bcd:
+        cfg = dataclasses.replace(cfg, use_pallas=(method == "bcd_pallas"))
+    setup = sh.prepare_sharded(problem, "bcd" if is_bcd else "fista", cfg,
+                               g)
+    dev = g.device
+    if lambdas is None:
+        lmax = sh.sharded_lambda_max(setup.loc, g)
+        lambdas = path_grid(lmax, path_len, lam_min_frac, problem.dtype, dev)
+    lambdas = torch.as_tensor(lambdas, dtype=problem.dtype, device=dev)
+    xs, gaps, iters, hists = [], [], [], []
+    x_warm = None
+    for lam in lambdas.tolist():
+        state = sh.run_sharded(setup, sh.sharded_state(setup, g, x_warm), g,
+                               lam)
+        x_warm = state.x_best
+        xs.append(all_gather(state.x_best, g))
+        gaps.append(state.best_rel_gap)
+        iters.append(state.k)
+        hists.append(state.history.trimmed())
+    return _path_result(cfg, lambdas, xs, gaps, iters, f"{method}+sharded",
+                        histories=hists)

@@ -19,8 +19,9 @@ the conftest's 8 CPU devices, the port's over 2 gloo ranks):
 The port CLI alone: the named configs' CI twins, a lambda path (every row
 <= 1e-4 and nnz non-decreasing, as ``tests/test_utils_cli.py`` checks the
 JAX CLI), CV, ``--path-compact``, ``--resume``, ``--jsonl``, ``--plot``,
-``--profile``, and the refusals (the row layout and the sharded paths name
-ROADMAP item 13; no card without ``--device cpu``).
+``--profile``, ``--mesh 2`` with config 3's screening and with a lambda
+path against the single-device CLI, and the refusals (the row layout
+names ROADMAP item 13b; no card without ``--device cpu``).
 """
 
 import json
@@ -175,12 +176,32 @@ def test_row_layout_names_item_13():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--config", "config3", "--ci"],                  # screening on
-    ["--config", "config1", "--ci", "--lambda-path", "4"],
+    ["--config", "config3", "--ci", "--tol", "1e-5"],      # screening on
+    ["--config", "config2", "--ci", "--lambda-path", "4", "--tol", "1e-4"],
 ])
-def test_sharded_screening_and_paths_name_item_13(argv):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        main(["--device", "cpu", "--mesh", "2", *argv])
+def test_sharded_screening_and_paths_name_item_13(argv, tmp_path, capsys):
+    """``--mesh 2`` with config 3 (which screens) and with
+    ``--lambda-path``, which refused before the sharded screening and
+    paths were ported (the name is kept): the sharded run's JSON against
+    the single-device CLI's on the same instance, and their snapshots' x
+    within 5e-5 (the sharded FISTA's parity tolerance,
+    ``tests/test_torch_sharded.py``)."""
+    snaps = [str(tmp_path / f"{k}.npz") for k in ("one", "mesh")]
+    one = _port(argv + ["--checkpoint", snaps[0]], capsys)
+    mesh = _port(argv + ["--mesh", "2", "--checkpoint", snaps[1]], capsys)
+    tol = float(argv[-1])
+    if "path" in one:
+        assert len(mesh["path"]) == len(one["path"]) == 4
+        for r1, rm in zip(one["path"], mesh["path"]):
+            assert rm["lam1"] == pytest.approx(r1["lam1"], rel=1e-5)
+            assert r1["rel_gap"] <= tol and rm["rel_gap"] <= tol
+            assert rm["nnz"] == r1["nnz"]
+    else:
+        assert (one["method"], mesh["method"]) == ("fista", "sharded_fista")
+        assert one["converged"] and mesh["converged"]
+        assert mesh["nnz"] == one["nnz"]
+    x1, xm = (ckpt.load_snapshot(s).x for s in snaps)
+    np.testing.assert_allclose(xm, x1, atol=5e-5)
 
 
 def test_no_card_without_device_cpu():

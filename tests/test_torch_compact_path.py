@@ -124,6 +124,6 @@ def test_compact_path_options():
     with pytest.raises(ValueError, match="compact"):
         cot.lambda_path(tp, SolverConfig(), path_len=3, compact=True,
                         method="bcd_batch")
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="single-device"):
         cot.lambda_path(tp, SolverConfig(), path_len=3, compact=True,
                         mesh=object())

@@ -876,6 +876,73 @@ def test_sharded_solves_on_card_match_cpu(cuda, tmp_path):
         np.testing.assert_allclose(c["x"], h["x"], atol=5e-4)
 
 
+def test_sharded_paths_on_card_match_cpu(cuda, tmp_path):
+    """The sharded paths on the card: two gloo ranks sharing it run the
+    screened sharded BCD and the sequential (bcd_pallas, fista) and
+    batched sharded paths of chip_smoke's phase 17 on its small instance
+    (l1 and weighted group_l2); the same on two CPU ranks.  Each card run
+    is held to the CPU run by ``chip_smoke.path_check``, every path point
+    on its own, and K8 (BCD), K2/K3 (FISTA) and K5-K7 (batched) launched
+    in each card rank."""
+    import os
+    import sys
+
+    from convex_optimization_tpu_torch.parallel.launch import run_ranks
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke as cs
+    from test_torch_sharded_ranks import path_job, solve_job
+
+    A, b, pens = cs.shard_small_instance()
+    runs = {"card": {}, "cpu": {}}
+    for where, dev in (("card", "cuda:0"), ("cpu", "cpu")):
+        for kind, pen in pens.items():
+            screened = dict(method="bcd_pallas", api=True,
+                            cfg=cs.SHARD_SCREEN)
+            paths = [dict(pen=pen, cfg=kw,
+                          kw=dict(cs.SMALL_GRID, method=method))
+                     for method, kw in cs.SMALL_PATHS]
+            out = run_ranks(solve_job, 2, tmp_path / f"{where}{kind}s", A,
+                            b, pen, [screened], device=dev, backend="gloo",
+                            timeout_s=600)
+            runs[where][kind] = (out, run_ranks(
+                path_job, 2, tmp_path / f"{where}{kind}p", A, b, paths,
+                device=dev, backend="gloo", timeout_s=600))
+    for kind, pen in pens.items():
+        p = problem_from_numpy(A, b, device="cpu", **pen)
+        (cs_card, cp_card), (cs_cpu, cp_cpu) = (runs[w][kind]
+                                                for w in ("card", "cpu"))
+        for rank in range(2):
+            lc = cs_card[rank][0]["launches"]
+            assert lc.get("sweep_slab_t", 0) > 0 and lc.get("sweep_t", 0) == 0
+        card, cpu = (dict(r[0][0], primal=r[0][0]["history"]["primal"],
+                          rel_gap=r[0][0]["history"]["rel_gap"])
+                     for r in (cs_card, cs_cpu))
+        a, h = (cs.path_run(p, r, A, b, 1e-6) for r in (card, cpu))
+        assert not cs.path_check(a, h, cs.SHARD_SCREEN["tol"],
+                                 cs.SHARD_SCREEN["gap_every"])
+        for i, (method, kw) in enumerate(cs.SMALL_PATHS):
+            pc, ph = cp_card[0][i], cp_cpu[0][i]
+            assert pc["method_used"] == ph["method_used"] \
+                == f"{method}+sharded"
+            want = {"bcd_pallas": "sweep_slab_t", "fista": "neg_at_r_t",
+                    "bcd_batch": "batch_sweep_t"}[method]
+            for rank in range(2):
+                assert cp_card[rank][i]["launches"].get(want, 0) > 0
+            for l, lam in enumerate(pc["lambdas"]):
+                run = [dict(x=r["xs"][l], primal=hist["primal"],
+                            rel_gap=hist["rel_gap"],
+                            converged=bool(r["converged"][l]))
+                       for r, hist in ((pc, pc["histories"][l]),
+                                       (ph, ph["histories"][l]))]
+                a, h = (cs.path_run(p.with_lam1(lm), r, A, b, 1e-6)
+                        for r, lm in zip(run, (lam, ph["lambdas"][l])))
+                fails = cs.path_check(a, h, kw["tol"], kw["gap_every"])
+                assert not fails, (method, kind, l, fails)
+
+
 def test_gloo_collectives_on_card_are_exact_or_raise(cuda, tmp_path):
     """Two gloo ranks on CUDA tensors: every collective the psum path
     needs is exact; the ring and the reduce-scatter raise on both ranks

@@ -85,9 +85,12 @@ def solve_job(g, A: np.ndarray, b: np.ndarray, pen: dict, runs: list
     ``method`` ("fista" or "bcd"), the SolverConfig fields ``cfg`` and
     either ``L_total`` (FISTA) or the full ``block_L`` and ``block``
     (BCD), fed as given, or ``api=True`` for ``solve(mesh=g, ...)`` with
-    ``cfg`` as keyword arguments; a run's own ``pen`` replaces ``pen``.
+    ``cfg`` as keyword arguments; a run's own ``pen`` replaces ``pen``
+    (``problem_from_numpy``'s arguments, ``lam2`` among them).  With
+    ``screen_every > 0`` the fed runs screen with the slab's column norms.
     Returns per run the gathered x, the history, the step count and the
-    launch counts of this rank."""
+    launch counts of this rank, and for the fed runs the gathered keep
+    mask of the last check."""
     from convex_optimization_tpu_torch.api import solve
     from convex_optimization_tpu_torch.core.problem import problem_from_numpy
     from convex_optimization_tpu_torch.ops import _build
@@ -115,17 +118,70 @@ def solve_job(g, A: np.ndarray, b: np.ndarray, pen: dict, runs: list
         cfg = SolverConfig(**run["cfg"])
         if run["method"] == "fista":
             loc = shard_columns(problem, g, problem.n // g.size)
-            final = sharded_fista(loc, run["L_total"], init_state(loc, None),
-                                  cfg, g)
         else:
             loc = shard_columns(problem, g, run["block"])
+        norms = loc.col_norms() if cfg.screen_every > 0 else None
+        if run["method"] == "fista":
+            final = sharded_fista(loc, run["L_total"], init_state(loc, None),
+                                  cfg, g, norms)
+        else:
             nb = loc.n // run["block"]
             lo = g.rank * nb
             bl = torch.as_tensor(run["block_L"][lo:lo + nb], device=g.device)
-            final = sharded_bcd(loc, bl, init_state(loc, None), cfg, g)
+            final = sharded_bcd(loc, bl, init_state(loc, None), cfg, g,
+                                norms)
         out.append(dict(x=_np(all_gather(final.x_best, g)),
+                        keep=_np(all_gather(final.keep_mask.float(), g)) > 0,
                         history=final.history.trimmed(), k=final.k,
                         rel_gap=final.best_rel_gap,
                         converged=final.best_rel_gap <= cfg.tol,
                         launches=dict(_build.launches)))
     return out
+
+
+def path_job(g, A: np.ndarray, b: np.ndarray, runs: list) -> list:
+    """The sharded lambda paths on one problem (a CPU view of A).
+    ``runs``: dicts with the penalty ``pen`` (``problem_from_numpy``'s
+    arguments), the SolverConfig fields ``cfg`` and the keyword arguments
+    ``kw`` of ``lambda_path(..., mesh=g)`` (``row_mask`` among them sends
+    the run to ``batched_lambda_path``).  Returns per run the path's
+    lambdas, xs, gaps, iters, converged flags, method_used, per-point
+    histories, the warnings it raised and this rank's launch counts."""
+    import warnings
+
+    from convex_optimization_tpu_torch.core.problem import problem_from_numpy
+    from convex_optimization_tpu_torch.ops import _build
+    from convex_optimization_tpu_torch.solvers.batched_path import (
+        batched_lambda_path,
+    )
+    from convex_optimization_tpu_torch.solvers.common import SolverConfig
+    from convex_optimization_tpu_torch.solvers.lambda_path import lambda_path
+
+    out = []
+    for run in runs:
+        problem = problem_from_numpy(A, b, device="cpu", **run["pen"])
+        cfg = SolverConfig(**run["cfg"])
+        kw = dict(run["kw"])
+        _build.reset_launches()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            if "row_mask" in kw:
+                kw["row_mask"] = torch.as_tensor(kw["row_mask"])
+                pr = batched_lambda_path(problem, cfg, mesh=g, **kw)
+            else:
+                pr = lambda_path(problem, cfg, mesh=g, **kw)
+        out.append(dict(lambdas=_np(pr.lambdas), xs=_np(pr.xs),
+                        gaps=_np(pr.gaps), iters=_np(pr.iters),
+                        converged=_np(pr.converged),
+                        method_used=pr.method_used,
+                        histories=pr.histories,
+                        warnings=[str(w.message) for w in caught],
+                        launches=dict(_build.launches)))
+    return out
+
+
+def solves_and_paths_job(g, solves: tuple, paths: list) -> tuple:
+    """``solve_job`` on ``solves`` (its arguments after the group) and
+    ``path_job`` on each of ``paths``, in one launch of the ranks."""
+    return (solve_job(g, *solves),
+            [path_job(g, *args) for args in paths])
