@@ -53,7 +53,7 @@ non-zero without one.  Phases, each of which fails the run if it fails:
      converged point certified the same, its wall beside bcd_batch's and
      K2's and K3's launches and share of its wall (launches times their
      phase-5 times); then
-     3-fold cv_lambda_path on the same instance, its refit certified the
+     2-fold cv_lambda_path on the same instance, its refit certified the
      same; the bcd_batch lines carry the checks' share of the wall (K6 and
      K7 launches times their phase-5 times at L = 10);
   8. config 4 (group lasso, 20k x 200k, 1000 groups of 200): K4 on the
@@ -149,6 +149,31 @@ non-zero without one.  Phases, each of which fails the run if it fails:
      f64 rel_gap <= 1e-4 and the largest |x - phase 7's x| reported.  The
      ranks' launches on the full-width runs are added to the kernels
      line.
+  18. the row and grid layouts, gloo ranks sharing the card: K4's two
+     stages (block_gram_t, block_power_gram_t) on the tall instance's
+     row slabs (TALL, 100k x 10k, B = 125: 80 x 125 x 50 000) against
+     their plain versions, timed (the kernels line), and the slabs'
+     Grams summed and iterated against block_power_t on the whole A_t
+     (1e-4 relative); K2 and K3 on a one-block view of a slab, on the row
+     slab and on a grid tile (timed), and on a row slab of m / R = 250
+     (the scalar instances); the tall instance on one card (bcd_pallas +
+     polish, the yardstick); then one launch of 2 x ROW_P ranks: ROW_P
+     row ranks on the card and ROW_P on the CPU run the small runs side
+     by side (SHARD_SMALL, l1 and weighted group_l2: the screened row BCD
+     and the 5-point row bcd_pallas and fista paths, each card run held
+     to the CPU's by path_check), then the card's row ranks solve the
+     tall instance by row FISTA and row BCD; the same ranks as a GRID_RC
+     grid: the small screened grid FISTA and BCD the same way, the
+     headline by grid FISTA and the tall instance by grid BCD.  Every
+     large run is polished here to an f64 rel_gap <= 1e-6 and reports its
+     K4 set-up seconds, the tall runs' largest |x - the one-card x| and
+     supports, and, from a separate fixed-length run of its solver
+     (TIMED_ITERS steps, TIMED_REPEATS times), its ms per step (the BCD's
+     per block) and its collectives each timed alone (their share of a
+     step); then the CLI's row layout (CLI_ROWS, one NCCL rank) against
+     the same CLI on a CPU rank by path_check.  The ranks' launches on
+     the large runs' solves and the CLI's are added to the kernels
+     line.
 
 Every path reads the launch counts set to 0 just before it.  Prints a JSON
 line per measured phase, one for the kernels (each with its time, the
@@ -176,7 +201,8 @@ C2_SEED, C2_M, C2_N, C2_LEN = 0, 5_000, 50_000, 10
 C2_CFG = dict(tol=1e-6, max_iters=10_000, gap_every=10, stall_checks=10,
               block_size=128)
 C2_F32_FLOOR = 1e-4          # BASELINE.md:88
-CV_K = 3                     # cut from 5 folds for the run's time
+CV_K = 2                     # cut from 5 folds for the run's time
+                             # (3 until phase 18 took the run past 950 s)
 BATCH_L = 10
 MATVEC_LS = (1, 4, BATCH_L, 16)      # the L at which K6 and K7 are checked
 # config 4: BASELINE.json:10, core/datagen.BENCH_CONFIGS["config4"]
@@ -250,6 +276,41 @@ GROUP_WS_LAM = 0.01
 FRONT_C3 = ["--config", "config3", "--method", "bcd_pallas",
             "--stall-checks", "15", "--polish"]
 FRONT_C2 = ["--config", "config2", "--stall-checks", "10"]
+# phase 18, the row and grid layouts on gloo ranks sharing the card: the
+# tall instance (the headline's 4 GB of A with m >> n, the shape the row
+# layout is for) over ROW_P row ranks and a GRID_RC grid, the headline
+# over the grid; the small runs on SHARD_SMALL (m / ROW_P = 250: K2/K3's
+# scalar instances) card against CPU ranks, held by path_check
+TALL = (SEED, 100_000, 10_000)                         # seed, m, n
+ROW_P = 2
+GRID_RC = (2, 2)
+ROWGRID_SOLVE = dict(tol=1e-6, max_iters=20_000, gap_every=10,
+                     stall_checks=15, block_size=128)
+# the large runs' times per step: the certified solves are short (the
+# planted tall model converges in 20 FISTA steps, 10 sweeps), so each
+# layout's solver is timed apart from them over a fixed count of steps,
+# TIMED_REPEATS times, and its collectives alone COLL_REPS times each
+TIMED_ITERS = {"fista": 200, "bcd": 10}
+TIMED_REPEATS = 3
+COLL_REPS = 30
+# The small BCD runs at tol 1e-5: at 1e-6 their last decade reaches the
+# f32 floor, where one-ulp changes of b alone move the row BCD's last
+# decade by -2 to +3 checks on CPU ranks (the card's first run read +3);
+# at 1e-5 those changes move no crossing and no last decade (row BCD,
+# grid BCD, grid FISTA; PERF.md §6).  B = 250 (the default block
+# size's pick): a row BCD block costs one all-reduce through the host,
+# and 8 blocks a sweep take 43 % fewer of them than B = 100's 20
+ROWGRID_BCD = dict(SHARD_BCD, tol=1e-5, block_size=256)
+ROW_SCREEN = (("bcd_pallas", dict(ROWGRID_BCD, screen_every=1)),)
+GRID_SCREEN = (("fista", dict(SHARD_FISTA, screen_every=1)),
+               ("bcd_pallas", dict(ROWGRID_BCD, screen_every=1)))
+ROW_PATHS = (("bcd_pallas", ROWGRID_BCD), ("fista", SHARD_FISTA))
+# the CLI's row layout: one NCCL rank on the card (``--mesh`` takes one
+# card per rank) against one gloo rank on the CPU, at config 1's f32 floor
+# the FISTA stop at 1e-6 is rounding's (10 000 steps at 1.3e-6 on one
+# CPU rank, 120 at 8.7e-7 on two): tol 1e-5
+CLI_ROWS = ["--config", "config1", "--ci", "--mesh", "1", "--mesh-axis",
+            "rows", "--tol", "1e-5", "--stall-checks", "15"]
 # the H100 SXM's published peaks (NVIDIA data sheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -275,6 +336,11 @@ KERNELS = {
         "convex_optimization_tpu/ops/bcd_sweep_pallas_tiled.py:94"),
     "sweep_slab_t": ("convex_optimization_tpu_torch/csrc/sweep.cu",
                      "convex_optimization_tpu/ops/bcd_sweep_pallas.py:126"),
+    # K4's two stages, the row and grid layouts' set-up (phase 18)
+    "block_gram_t": ("convex_optimization_tpu_torch/csrc/matvec.cu",
+                     "convex_optimization_tpu/ops/matvec_pallas.py:91"),
+    "block_power_gram_t": ("convex_optimization_tpu_torch/csrc/matvec.cu",
+                           "convex_optimization_tpu/ops/matvec_pallas.py:91"),
 }
 MAIN_KERNELS = ("sweep_t", "ax_minus_b_t", "neg_at_r_t", "block_power_t")
 PATH_KERNELS = ("block_power_t", "batch_sweep_t", "ax_minus_b_batch_t",
@@ -2578,6 +2644,28 @@ def small_path_runs(run: dict) -> list:
             for l in range(len(run["xs"]))]
 
 
+def check_path_points(card: dict, cpu: dict, problem, A_s, b_s, kw: dict,
+                      label: str) -> list:
+    """A small sharded path on the card held to the same path on CPU
+    ranks: the same grid (1e-5 relative), then every point by
+    ``path_check``, each run polished at its own grid point; returns the
+    numbers path_check compared, per point."""
+    import numpy as np
+
+    np.testing.assert_allclose(card["lambdas"], cpu["lambdas"], rtol=1e-5)
+    pts = []
+    for l, (pc, ph) in enumerate(zip(small_path_runs(card),
+                                     small_path_runs(cpu))):
+        a = path_run(problem.with_lam1(card["lambdas"][l]), pc, A_s, b_s,
+                     1e-6)
+        h = path_run(problem.with_lam1(cpu["lambdas"][l]), ph, A_s, b_s,
+                     1e-6)
+        fails = path_check(a, h, kw["tol"], kw["gap_every"])
+        require(not fails, f"{label} point {l}: {'; '.join(fails)}")
+        pts.append(path_numbers(a, h, kw["tol"]))
+    return pts
+
+
 def sharded_paths_job(g, A_s, b_s, pens_s, c3, c2) -> dict:
     """Phase 17 in each of the SHARD_P ranks (gloo, sharing the card).
     The small instance (SHARD_SMALL; ``pens_s`` its penalties): the
@@ -2739,20 +2827,8 @@ def sharded_paths_phase(device, c3_host: dict, c2_xs: dict, gpu: str,
             require(card["method_used"] == cpu["method_used"] == want,
                     f"small {method} {kind} path ran {card['method_used']}"
                     f" / {cpu['method_used']}")
-            np.testing.assert_allclose(card["lambdas"], cpu["lambdas"],
-                                       rtol=1e-5)
-            pts = []
-            for l, (pc, ph) in enumerate(zip(small_path_runs(card),
-                                             small_path_runs(cpu))):
-                # each run polished at its own grid point
-                a = path_run(p.with_lam1(card["lambdas"][l]), pc, A_s, b_s,
-                             1e-6)
-                h = path_run(p.with_lam1(cpu["lambdas"][l]), ph, A_s, b_s,
-                             1e-6)
-                fails = path_check(a, h, kw["tol"], kw["gap_every"])
-                require(not fails, f"small {method} {kind} path point {l}"
-                        f": {'; '.join(fails)}")
-                pts.append(path_numbers(a, h, kw["tol"]))
+            pts = check_path_points(card, cpu, p, A_s, b_s, kw,
+                                    f"small {method} {kind} path")
             small[f"{method}/{kind}"] = dict(
                 sweeps=[card["sweeps"], cpu["sweeps"]],
                 iters=[card["iters"], cpu["iters"]], points=pts)
@@ -2863,6 +2939,543 @@ def sharded_paths_phase(device, c3_host: dict, c2_xs: dict, gpu: str,
             for name, n in lc.items():
                 total[name] = total.get(name, 0) + n
     return total
+
+
+def compare_k4_stages(slabs, A_t, label: str, stats: dict, card: tuple
+                      ) -> None:
+    """K4's two stages on the row slabs ``slabs`` of ``A_t``: the Gram
+    stage against ``bmm`` (1e-4 of each G_j's largest diagonal entry:
+    each entry is an f32 chain of up to m / S products, S the plan's
+    slices, whose rounding grows as sqrt(m / S) eps, 1.3e-5 at a slab's
+    12 500; exactly symmetric) and the iteration stage on that G against the
+    plain iteration (1e-4 relative), each launched twice (torch.equal);
+    the stages on the first slab timed beside their plain versions and
+    one library call each (``bmm``; ``matrix_norm(G, ord=2)``, the top
+    eigenvalue of a symmetric PSD G); then the slabs' Grams summed and
+    iterated against ``block_power_t`` on the whole ``A_t`` (1e-4
+    relative, K4's check): what the row-sharded set-up computes."""
+    import torch
+
+    from convex_optimization_tpu_torch.ops import matvec as mv
+
+    nb, B, m = slabs[0].shape
+    G = mv.block_gram_t(slabs[0])
+    scale = torch.diagonal(G, dim1=1, dim2=2).amax(dim=1)[:, None, None]
+    g_err = float(((G - mv.block_gram_t_plain(slabs[0])).abs()
+                   / scale).max())
+    require(g_err <= 1e-4, f"{label} block_gram_t err {g_err} (relative)")
+    require(torch.equal(G, G.transpose(1, 2)), f"{label} G not symmetric")
+    require(torch.equal(G, mv.block_gram_t(slabs[0])),
+            f"{label} block_gram_t differs run to run")
+    est = mv.block_power_gram_t(G)
+    ref = mv.block_power_gram_t_plain(G)
+    p_err = float(((est - ref).abs() / ref.abs().clamp(min=1e-30)).max())
+    require(p_err <= 1e-4, f"{label} block_power_gram_t err {p_err}")
+    require(torch.equal(est, mv.block_power_gram_t(G)),
+            f"{label} block_power_gram_t differs run to run")
+    g_abs = float((G - mv.block_gram_t_plain(slabs[0])).abs().max())
+    gram_work = (4 * nb * B * m + 4 * nb * B * B, B * (B + 1) * m * nb)
+    record(stats, "block_gram_t", g_abs,
+           time_ms(lambda: mv.block_gram_t(slabs[0]), 3),
+           time_ms(lambda: mv.block_gram_t_plain(slabs[0]), 3),
+           time_ms(lambda: torch.bmm(slabs[0], slabs[0].mT), 3), gram_work)
+    power_work_ = (4 * nb * B * B + 4 * nb, 2 * 49 * B * B * nb)
+    record(stats, "block_power_gram_t", float((est - ref).abs().max()),
+           time_ms(lambda: mv.block_power_gram_t(G), 3),
+           time_ms(lambda: mv.block_power_gram_t_plain(G), 3),
+           time_ms(lambda: torch.linalg.matrix_norm(G, ord=2), 3),
+           power_work_)
+    summed = sum(mv.block_gram_t(s) for s in slabs)
+    got = mv.block_power_gram_t(summed)
+    whole = mv.block_power_t(A_t)
+    c_err = float(((got - whole).abs() / whole.abs().clamp(min=1e-30)).max())
+    require(c_err <= 1e-4, f"{label} summed Grams against block_power_t: "
+            f"{c_err} relative")
+    record(stats, "block_power_t", float((got - whole).abs().max()))
+    print(json.dumps({
+        "metric": f"k4_stages_{label}_slab_{nb}x{B}x{m}_of_{len(slabs)}",
+        "gram": stats["block_gram_t"], "power": stats["block_power_gram_t"],
+        "gram_rel_err": g_err, "power_rel_err": p_err,
+        "summed_vs_block_power_t_rel_err": c_err,
+        "block_power_t_ms_whole": time_ms(lambda: mv.block_power_t(A_t), 3),
+        "gpu": card[0], "power_limit": card[1]}), flush=True)
+
+
+def rowgrid_small_runs(gg, where: str, layout: str, A_s, b_s,
+                       pens_s) -> dict:
+    """Phase 18's small runs on one group ``gg`` (``where``: "card" or
+    "cpu"): on SHARD_SMALL with each of ``pens_s``'s penalties, the
+    screened solves and, on the rows, the 5-point paths."""
+    import convex_optimization_tpu_torch as cot
+    from convex_optimization_tpu_torch.core.problem import problem_from_numpy
+    from convex_optimization_tpu_torch.ops import _build
+    from convex_optimization_tpu_torch.solvers.common import SolverConfig
+
+    small = {}
+    for kind, pen in pens_s.items():
+        p = problem_from_numpy(A_s, b_s, device="cpu", **pen)
+        for method, kw in ROW_SCREEN if layout == "rows" else GRID_SCREEN:
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            res = cot.solve(p, method, mesh=gg, **kw)
+            small[(where, "screened", method, kind)] = dict(
+                x=res.x.cpu().numpy(), k=res.iterations,
+                screened=res.screened, converged=bool(res.converged),
+                method=res.method, wall=time.perf_counter() - t0,
+                primal=res.history["primal"].tolist(),
+                rel_gap=res.history["rel_gap"].tolist(),
+                launches=dict(_build.launches))
+        for method, kw in ROW_PATHS if layout == "rows" else ():
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            pr = cot.lambda_path(p, SolverConfig(**kw), mesh=gg,
+                                 method=method, **SMALL_GRID)
+            small[(where, method, kind)] = dict(
+                xs=pr.xs.cpu().numpy(), lambdas=pr.lambdas.tolist(),
+                converged=pr.converged.tolist(),
+                method_used=pr.method_used, sweeps=pr.sweeps,
+                wall=time.perf_counter() - t0,
+                histories=[{k: v.tolist() for k, v in h.items()}
+                           for h in pr.histories],
+                launches=dict(_build.launches))
+    return small
+
+
+def rowgrid_timed(p, method: str, gg, roles: dict) -> dict:
+    """The per-step timing of one large run on ``gg``: one set-up, then the
+    solver from x = 0 for TIMED_ITERS steps (tol 0, no stall rule: a
+    step's work does not depend on the iterate), once with its
+    collectives counted (a Python counter, no sync added) and then
+    TIMED_REPEATS times untouched; then each counted collective alone,
+    COLL_REPS times on a buffer of its size.  ``roles`` names each group
+    object ("rows", "blocks", "world") for the counts."""
+    import contextlib
+
+    import torch
+
+    from convex_optimization_tpu_torch.parallel import _loop as lp
+    from convex_optimization_tpu_torch.parallel import grid_sharded as gs
+    from convex_optimization_tpu_torch.parallel import row_sharded as rs
+    from convex_optimization_tpu_torch.parallel import sharded as sh
+    from convex_optimization_tpu_torch.solvers.common import SolverConfig
+
+    bcd = "bcd" in method
+    cfg = SolverConfig(**dict(
+        ROWGRID_SOLVE, tol=0.0, stall_checks=0,
+        max_iters=TIMED_ITERS["bcd" if bcd else "fista"]), use_pallas=bcd)
+    setup = sh.prepare_sharded(p, "bcd" if bcd else "fista", cfg, gg)
+    counts: dict = {}
+    slots = ((rs, "psum"), (gs, "psum"), (gs, "pmax"), (lp, "broadcast0"))
+
+    @contextlib.contextmanager
+    def counted():
+        saved = [getattr(mod, name) for mod, name in slots]
+
+        def wrap(name, fn):
+            def op(x, g_):
+                key = (name, roles.get(id(g_), type(g_).__name__),
+                       x.numel(), str(x.dtype))
+                counts.setdefault(key, [fn, g_, x.dtype, 0])[3] += 1
+                return fn(x, g_)
+            return op
+
+        for (mod, name), fn in zip(slots, saved):
+            setattr(mod, name, wrap(name, fn))
+        try:
+            yield
+        finally:
+            for (mod, name), fn in zip(slots, saved):
+                setattr(mod, name, fn)
+
+    walls, steps = [], 0
+    for i in range(1 + TIMED_REPEATS):
+        state = sh.sharded_state(setup, gg)
+        torch.cuda.synchronize(gg.device)
+        t0 = time.perf_counter()
+        with counted() if i == 0 else contextlib.nullcontext():
+            final = sh.run_sharded(setup, state, gg)
+        torch.cuda.synchronize(gg.device)
+        if i:
+            walls.append(time.perf_counter() - t0)
+        steps = final.k
+    alone = []
+    for (name, role, numel, _), (fn, g_, dtype, n) in counts.items():
+        buf = torch.zeros(numel, dtype=dtype, device=gg.device)
+        fn(buf, g_)
+        torch.cuda.synchronize(gg.device)
+        t0 = time.perf_counter()
+        for _ in range(COLL_REPS):
+            fn(buf, g_)
+        torch.cuda.synchronize(gg.device)
+        alone.append(dict(op=name, over=role, floats=numel, per_run=n,
+                          ms=1e3 * (time.perf_counter() - t0) / COLL_REPS))
+    med = sorted(walls)[len(walls) // 2]
+    coll_s = sum(c["per_run"] * c["ms"] for c in alone) / 1e3
+    return dict(steps=steps, walls_s=walls,
+                ms_per_step=[1e3 * w / max(steps, 1) for w in walls],
+                collectives=alone, collective_s_per_run=coll_s,
+                collective_share=coll_s / max(med, 1e-9))
+
+
+def rowgrid_ranks_job(g, A_s, b_s, pens_s, rows_big: list,
+                      grid_big: list) -> dict:
+    """Phase 18 in each of the 2 ROW_P = GRID_RC ranks (gloo, the ranks
+    share the card).  The rows: ranks 0 .. ROW_P - 1 form a RowGroup on
+    the card and the others one on the CPU, which run the small runs
+    (``rowgrid_small_runs``) side by side; then the card's row ranks run
+    each of ``rows_big``.  The grid: the small runs on the card, then on
+    the CPU (the same ranks), then each of ``grid_big``.  A large run:
+    (name, method, A from shared memory, b, lam1), an l1 solve with
+    ROWGRID_SOLVE, then its timing (``rowgrid_timed``)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    import convex_optimization_tpu_torch as cot
+    from convex_optimization_tpu_torch.core.problem import Problem
+    from convex_optimization_tpu_torch.models.penalties import l1
+    from convex_optimization_tpu_torch.ops import _build
+    from convex_optimization_tpu_torch.parallel.mesh import (
+        GridGroup,
+        grid_group,
+        row_group,
+    )
+    from convex_optimization_tpu_torch.solvers.bcd import pick_block_size
+
+    started = time.time()
+    # every rank builds every sub-group, in the same order
+    pairs = [dist.new_group(list(range(i * ROW_P, (i + 1) * ROW_P)))
+             for i in range(g.size // ROW_P)]
+    half = g.rank // ROW_P
+    rows = row_group(g.device if half == 0 else "cpu", pairs[half])
+    grid = grid_group(*GRID_RC, g.device)
+    cpu = torch.device("cpu")
+    grid_cpu = GridGroup(*(dataclasses.replace(m, device=cpu)
+                           for m in (grid.rows, grid.blocks, grid.world)))
+    roles = {id(rows): "rows", id(grid.rows): "rows",
+             id(grid.blocks): "blocks", id(grid.world): "world"}
+
+    def big_run(gg, layout, name, method, A_sh, b_h, lam_h) -> dict:
+        p = Problem(A_t=A_sh.unsqueeze(1), b=b_h, penalty=l1(lam_h))
+        torch.cuda.synchronize(g.device)
+        _build.reset_launches()
+        res = cot.solve(p, method, mesh=gg, **ROWGRID_SOLVE)
+        torch.cuda.synchronize(g.device)
+        launches = dict(_build.launches)
+        n_loc = p.n // (1 if layout == "rows" else GRID_RC[1])
+        out = dict(
+            k=res.iterations, rel_gap=res.rel_gap, wall=res.wall_time_s,
+            setup=res.setup_time_s, method=res.method,
+            converged=bool(res.converged),
+            blocks=n_loc // pick_block_size(
+                n_loc, ROWGRID_SOLVE["block_size"]),
+            launches=launches,
+            x=res.x.cpu().numpy() if g.rank == 0 else None)
+        del res
+        out["timed"] = rowgrid_timed(p, method, gg, roles)
+        del p
+        torch.cuda.empty_cache()
+        return out
+
+    out = dict(started=started)
+    t0 = time.time()
+    out["rows_small"] = rowgrid_small_runs(
+        rows, "card" if half == 0 else "cpu", "rows", A_s, b_s, pens_s)
+    out["rows_small_s"] = time.time() - t0
+    dist.barrier()
+    out["rows_big"] = {} if half else {
+        name: big_run(rows, "rows", name, *rest)
+        for name, *rest in rows_big}
+    dist.barrier()
+    t0 = time.time()
+    out["grid_small"] = {}
+    for where, gg in (("card", grid), ("cpu", grid_cpu)):
+        out["grid_small"].update(rowgrid_small_runs(gg, where, "grid", A_s,
+                                                    b_s, pens_s))
+    out["grid_small_s"] = time.time() - t0
+    out["grid_big"] = {name: big_run(grid, "grid", name, *rest)
+                       for name, *rest in grid_big}
+    return out
+
+
+def rowgrid_small_checks(runs_small: dict, probs: dict, A_s, b_s,
+                         layout: str) -> dict:
+    """Each small card run of phase 18 (``runs_small``, keyed as
+    ``rowgrid_small_runs`` keys them, card and CPU) held to the CPU run of
+    the same input by path_check (every path point on its own); returns
+    the numbers path_check compared."""
+    small = {}
+    for kind, p in probs.items():
+        for method, kw in ROW_SCREEN if layout == "rows" else GRID_SCREEN:
+            runs = {w: runs_small[(w, "screened", method, kind)]
+                    for w in ("card", "cpu")}
+            want = f"{'row' if layout == 'rows' else 'grid'}_sharded_" \
+                f"{'bcd' if 'bcd' in method else method}"
+            require(runs["card"]["method"] == runs["cpu"]["method"] == want,
+                    f"{layout} screened {method} {kind}: ran "
+                    f"{runs['card']['method']}")
+            pol = {w: path_run(p, run, A_s, b_s, 1e-6)
+                   for w, run in runs.items()}
+            fails = path_check(pol["card"], pol["cpu"], kw["tol"],
+                               kw["gap_every"])
+            require(not fails, f"{layout} screened {method} {kind}: "
+                    f"{'; '.join(fails)}")
+            for name in ("ax_minus_b_t", "neg_at_r_t"):
+                require(runs["card"]["launches"].get(name, 0) > 0,
+                        f"{layout} screened {method} {kind}: {name}")
+            require(0 < runs["card"]["screened"] < p.n,
+                    f"{layout} screened {method} {kind}: "
+                    f"{runs['card']['screened']} columns screened")
+            small[f"screened/{method}/{kind}"] = dict(
+                k=[runs[w]["k"] for w in ("card", "cpu")],
+                wall_s=[runs[w]["wall"] for w in ("card", "cpu")],
+                screened=[runs[w]["screened"] for w in ("card", "cpu")],
+                path=path_numbers(pol["card"], pol["cpu"], kw["tol"]))
+        for method, kw in ROW_PATHS if layout == "rows" else ():
+            card, cpu = (runs_small[(w, method, kind)]
+                         for w in ("card", "cpu"))
+            require(card["method_used"] == cpu["method_used"]
+                    == f"{method}+sharded",
+                    f"row {method} {kind} path ran {card['method_used']}")
+            small[f"path/{method}/{kind}"] = dict(
+                sweeps=[card["sweeps"], cpu["sweeps"]],
+                wall_s=[card["wall"], cpu["wall"]],
+                points=check_path_points(card, cpu, p, A_s, b_s, kw,
+                                         f"row {method} {kind} path"))
+    return small
+
+
+def cli_rows() -> dict:
+    """The CLI's row layout (``--mesh-axis rows``) on the card, one NCCL
+    rank, held by path_check to the same CLI on one gloo rank on the CPU:
+    the histories from --jsonl, x from --checkpoint, each polished to
+    1e-6 on config 1's CI instance."""
+    import tempfile
+
+    from convex_optimization_tpu_torch.core.datagen import BENCH_CONFIGS
+    from convex_optimization_tpu_torch.utils.checkpoint import load_snapshot
+
+    tol = float(CLI_ROWS[CLI_ROWS.index("--tol") + 1])
+    runs, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for where in ("card", "cpu"):
+            snap = os.path.join(tmp, f"{where}.npz")
+            jl = os.path.join(tmp, f"{where}.jsonl")
+            out, launches[where], _ = run_cli(
+                CLI_ROWS + ["--device", "cuda" if where == "card" else "cpu",
+                            "--checkpoint", snap, "--jsonl", jl])
+            with open(jl) as f:
+                recs = [json.loads(ln) for ln in f][1:]
+            runs[where] = dict(
+                x=load_snapshot(snap).x, converged=bool(out["converged"]),
+                primal=[r["primal"] for r in recs],
+                rel_gap=[r["rel_gap"] for r in recs], out=out)
+    inst, A_c, b_c = BENCH_CONFIGS["config1"].instance_host(0, ci=True,
+                                                            device="cpu")
+    pol = {w: path_run(inst.problem, r, A_c, b_c, 1e-6)
+           for w, r in runs.items()}
+    fails = path_check(pol["card"], pol["cpu"], tol, 10)
+    for w in ("card", "cpu"):
+        require(runs[w]["out"]["method"] == "row_sharded_fista",
+                f"cli rows ({w}): {runs[w]['out']['method']}")
+    require(not fails, f"cli rows: {'; '.join(fails)}")
+    for name in ("ax_minus_b_t", "neg_at_r_t"):
+        require(launches["card"].get(name, 0) > 0, f"cli rows: {name}")
+    return dict(card=runs["card"]["out"], cpu=runs["cpu"]["out"],
+                launches=launches["card"],
+                path=path_numbers(pol["card"], pol["cpu"], tol))
+
+
+def rowgrid_phase(device, head_host: tuple, gpu: str, power: str,
+                  stats: dict) -> dict:
+    """Phase 18: the row and grid layouts, gloo ranks sharing the card.
+    K4's two stages on the tall instance's row slabs, K2 and K3 on a
+    one-block view, the row slab, a grid tile and a row slab of m / R =
+    250; the tall instance solved on one card (bcd_pallas + polish, the
+    yardstick); then one launch of 2 x ROW_P ranks (``rowgrid_ranks_job``:
+    the rows' small runs card beside CPU, the tall row FISTA and row BCD;
+    the GRID_RC grid's small runs, the headline's grid FISTA, the tall
+    grid BCD), every large run polished here to an f64 rel_gap <= 1e-6;
+    the CLI's row layout.  ``head_host``: the headline's host A, b and
+    lam1.  Returns the ranks' launches summed over the large runs."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import convex_optimization_tpu_torch as cot
+    from convex_optimization_tpu_torch.core.datagen import (
+        make_lasso_instance_host,
+    )
+    from convex_optimization_tpu_torch.parallel.launch import run_ranks
+    from convex_optimization_tpu_torch.solvers.bcd import pick_block_size
+
+    card = (gpu, power)
+    tol = ROWGRID_SOLVE["tol"]
+    t0 = time.perf_counter()
+    inst_t, A_t_np, b_t_np = make_lasso_instance_host(*TALL, device="cpu")
+    lam_t = float(inst_t.problem.penalty.lam1)
+    log(f"# datagen {TALL[1]}x{TALL[2]}: {time.perf_counter() - t0:.2f} s")
+    m_t, n_t = TALL[1], TALL[2]
+
+    # the kernels at phase 18's shapes, then the one-card yardstick
+    p_one = cot.problem_from_numpy(A_t_np, b_t_np, "l1", lam_t,
+                                   device=device)
+    B_t = pick_block_size(n_t, ROWGRID_SOLVE["block_size"])
+    A_tb = p_one.with_block(B_t).A_t
+    h = m_t // ROW_P
+    slabs = [A_tb[..., r * h:(r + 1) * h].contiguous() for r in range(ROW_P)]
+    compare_k4_stages(slabs, A_tb, "tall_rows", stats, card)
+    gen = torch.Generator(device="cpu").manual_seed(TALL[0])
+    compare_matvecs(slabs[0][:1], p_one.b[:h],
+                    torch.randn(B_t, generator=gen).to(device),
+                    "tall_one_block_view", stats, True, card, main=False)
+    # the row slab (row FISTA's products, the row BCD's refresh) and a grid
+    # tile, the slab's first n / C columns (the grid BCD's refresh)
+    compare_matvecs(slabs[0], p_one.b[:h],
+                    torch.randn(n_t, generator=gen).to(device),
+                    "tall_row_slab", stats, True, card, main=False)
+    nb_tile = slabs[0].shape[0] // GRID_RC[1]
+    compare_matvecs(slabs[0][:nb_tile], p_one.b[:h],
+                    torch.randn(nb_tile * B_t, generator=gen).to(device),
+                    "tall_grid_tile", stats, True, card, main=False)
+    del slabs, A_tb
+    A_s, b_s, pens_s = shard_small_instance()
+    small_slab = cot.problem_from_numpy(A_s, b_s, device=device,
+                                        **pens_s["l1"]).with_block(100)
+    half = SHARD_SMALL[1] // ROW_P
+    compare_matvecs(small_slab.A_t[..., :half].contiguous(),
+                    small_slab.b[:half],
+                    torch.randn(SHARD_SMALL[2], generator=gen).to(device),
+                    "small_row_slab_m250", stats, False, card, main=False)
+    del small_slab
+    torch.cuda.synchronize()
+    res1 = cot.solve(p_one, "bcd_pallas", **SOLVE_KW)
+    pol1 = cot.polish_support(p_one, res1.x, tol=tol, A_host=A_t_np,
+                              b_host=b_t_np)
+    require(pol1.rel_gap <= tol, f"tall one-card: f64 {pol1.rel_gap}")
+    one = dict(sweeps=res1.iterations, solve_wall_s=res1.wall_time_s,
+               polish_wall_s=pol1.wall_time_s, f64_rel_gap=pol1.rel_gap,
+               nnz=int(np.count_nonzero(pol1.x)))
+    x_one = pol1.x
+    del res1
+    torch.cuda.empty_cache()
+
+    A_head, b_head, lam_head = head_host
+    A_tall_sh = torch.from_numpy(np.ascontiguousarray(A_t_np.T)) \
+        .share_memory_()
+    A_head_sh = torch.from_numpy(np.ascontiguousarray(A_head.T)) \
+        .share_memory_()
+    tall = (A_tall_sh, torch.from_numpy(b_t_np), lam_t)
+    head = (A_head_sh, torch.from_numpy(b_head), lam_head)
+    bigs = {"rows": [("tall_fista", "fista", *tall),
+                     ("tall_bcd", "bcd_pallas", *tall)],
+            "grid": [("headline_fista", "fista", *head),
+                     ("tall_bcd", "bcd_pallas", *tall)]}
+    P = GRID_RC[0] * GRID_RC[1]
+    require(P == 2 * ROW_P, f"phase 18 runs 2 x {ROW_P} ranks, the grid "
+            f"{GRID_RC}")
+    t0, launched = time.perf_counter(), time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = run_ranks(rowgrid_ranks_job, P, tmp, A_s, b_s, pens_s,
+                          bigs["rows"], bigs["grid"], device=str(device),
+                          backend="gloo", timeout_s=900,
+                          collective_timeout_s=300)
+    ranks_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    log(f"# phase 18 ranks: up after "
+        f"{min(r['started'] for r in ranks) - launched:.1f} s, rows small "
+        f"runs {r0['rows_small_s']:.1f} s on the card beside "
+        f"{ranks[ROW_P]['rows_small_s']:.1f} s on the CPU, grid small runs "
+        f"{r0['grid_small_s']:.1f} s (card, then CPU); wall {ranks_s:.1f} s")
+    launches_total: dict = {}
+    probs = {k: cot.problem_from_numpy(A_s, b_s, device="cpu", **pen)
+             for k, pen in pens_s.items()}
+    p_head = None                 # on the card for the grid's polish only
+    for layout, runs_small, big_ranks in (
+            ("rows", {**r0["rows_small"], **ranks[ROW_P]["rows_small"]},
+             ranks[:ROW_P]),
+            ("grid", r0["grid_small"], ranks)):
+        t1 = time.perf_counter()
+        small = rowgrid_small_checks(runs_small, probs, A_s, b_s, layout)
+        log(f"# {layout} small runs {SHARD_SMALL[1]}x{SHARD_SMALL[2]}, card "
+            f"against CPU (checked in {time.perf_counter() - t1:.1f} s): "
+            f"{json.dumps(small)}")
+        for name, method, *_ in bigs[layout]:
+            run = r0[f"{layout}_big"][name]
+            kind = "bcd" if "bcd" in method else "fista"
+            for rank in big_ranks:
+                lc = rank[f"{layout}_big"][name]["launches"]
+                want = ("ax_minus_b_t", "neg_at_r_t") + (
+                    ("block_gram_t", "block_power_gram_t")
+                    if kind == "bcd" else ())
+                for kname in want:
+                    require(lc.get(kname, 0) > 0,
+                            f"{layout} {name}: {kname} launches {lc}")
+                require(lc.get("block_power_t", 0) == 0
+                        and lc.get("sweep_t", 0) == 0,
+                        f"{layout} {name}: launches {lc}")
+                require(rank[f"{layout}_big"][name]["k"] == run["k"],
+                        f"{layout} {name}: ranks disagree on steps")
+                for kname, cnt in lc.items():
+                    launches_total[kname] = launches_total.get(kname, 0) \
+                        + cnt
+            x = run["x"]
+            is_head = name.startswith("headline")
+            if is_head and p_head is None:
+                p_head = cot.problem_from_numpy(A_head, b_head, "l1",
+                                                lam_head, device=device)
+            p, A_h, b_h = ((p_head, A_head, b_head) if is_head
+                           else (p_one, A_t_np, b_t_np))
+            require(x.shape == (p.n,) and bool(np.isfinite(x).all()),
+                    f"{layout} {name} x")
+            pol = cot.polish_support(p, torch.from_numpy(x), tol=tol,
+                                     A_host=A_h, b_host=b_h)
+            timed = run["timed"]
+            line = {
+                "metric": f"{layout}_sharded_{name}_{p.m}x{p.n}_"
+                          f"{P if layout == 'grid' else ROW_P}ranks_1card",
+                "method": run["method"], "steps": run["k"],
+                "converged_f32": run["converged"],
+                "f32_rel_gap": run["rel_gap"],
+                "solve_wall_s": run["wall"],
+                "k4_setup_s" if kind == "bcd" else "setup_s": run["setup"],
+                "polish_wall_s": pol.wall_time_s,
+                "total_s": run["wall"] + pol.wall_time_s,
+                "f64_rel_gap": pol.rel_gap,
+                "nnz": int(np.count_nonzero(pol.x)),
+                "timed_steps": timed["steps"],
+                "ms_per_step": timed["ms_per_step"],
+                "collectives": timed["collectives"],
+                "collective_share": timed["collective_share"],
+                "launches_per_rank": [r[f"{layout}_big"][name]["launches"]
+                                      for r in big_ranks],
+                "gpu": gpu, "power_limit": power}
+            if kind == "bcd":
+                line["blocks_per_sweep_per_rank"] = run["blocks"]
+                line["ms_per_block"] = [v / run["blocks"]
+                                        for v in timed["ms_per_step"]]
+            if not is_head:
+                sup_one, sup = x_one != 0, pol.x != 0
+                line.update(
+                    one_card=one,
+                    max_abs_dx_vs_one_card=float(np.abs(pol.x - x_one).max()),
+                    support=int(sup.sum()), support_one_card=int(
+                        sup_one.sum()),
+                    support_equal=bool((sup == sup_one).all()))
+            print(json.dumps(line), flush=True)
+            require(pol.rel_gap <= tol,
+                    f"{layout} {name}: f64 certificate {pol.rel_gap}")
+    del A_tall_sh, A_head_sh, tall, head, bigs
+    cli = cli_rows()
+    print(json.dumps({"metric": "cli_config1_ci_mesh1_rows", **cli,
+                      "gpu": gpu, "power_limit": power}), flush=True)
+    for name, cnt in cli["launches"].items():
+        launches_total[name] = launches_total.get(name, 0) + cnt
+    del p_one, p_head
+    torch.cuda.empty_cache()
+    return launches_total
 
 
 def main() -> None:
@@ -3083,7 +3696,9 @@ def main() -> None:
     # 16 (first part). polish and polish_fast at phase 4's f32 x
     headline_polishes(problem, x_head, A_np, b_np, head_support,
                       main_walls["polish_wall_s"], gpu_name, power_limit)
-    del problem, inst, A_np, b_np
+    # phase 18 runs the headline again over the grid, from the host arrays
+    head_host = (A_np, b_np, float(problem.penalty.lam1))
+    del problem, inst
     torch.cuda.empty_cache()
     admm_small(device, gpu_name, power_limit)
 
@@ -3105,18 +3720,28 @@ def main() -> None:
         gpu_name, power_limit, stats)
     del c3
 
+    # 18. the row and grid layouts: ROW_P and GRID_RC ranks on the card,
+    # the tall instance and the headline
+    torch.cuda.empty_cache()
+    rowgrid_launches = rowgrid_phase(device, head_host, gpu_name,
+                                     power_limit, stats)
+    del head_host
+
     require(all(math.isfinite(stats[k]["ms"]) for k in KERNELS),
             "kernel times")
     log(f"# chip_smoke wall: {time.perf_counter() - t_start:.1f} s")
     kernel_launches = {k: launches[k] for k in MAIN_KERNELS}
-    kernel_launches.update({k: path_launches[k] for k in KERNELS
+    kernel_launches.update({k: path_launches.get(k, 0) for k in KERNELS
                             if k not in MAIN_KERNELS + ("sweep_tiled_t",
                                                         "sweep_slab_t")})
     kernel_launches["sweep_tiled_t"] = k9_launches["sweep_tiled_t"]
     kernel_launches["sweep_slab_t"] = slab_launches
-    # phase 17's ranks launched K2-K8 on their slabs
+    # phase 17's ranks launched K2-K8 on their slabs, phase 18's K2, K3 and
+    # K4's two stages on their row slabs and tiles
     for name in KERNELS:
-        kernel_launches[name] += shard_path_launches.get(name, 0)
+        kernel_launches[name] = (kernel_launches.get(name, 0)
+                                 + shard_path_launches.get(name, 0)
+                                 + rowgrid_launches.get(name, 0))
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": kernel_launches[name],

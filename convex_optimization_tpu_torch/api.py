@@ -2,8 +2,9 @@
 
 Counterpart of ``convex_optimization_tpu/api.py``: every single-device
 method (``bcd``, ``bcd_pallas``, ``fista``, ``ista``, ``admm`` and the
-working-set ``fista_ws`` / ``bcd_ws``), the column-sharded solvers
-(``mesh=``, a ``parallel.mesh.ColumnGroup``) and the f64 certify phase.
+working-set ``fista_ws`` / ``bcd_ws``), the sharded solvers (``mesh=``,
+a ``parallel.mesh.ColumnGroup``, ``RowGroup`` or ``GridGroup``) and the
+f64 certify phase.
 The relay timing protocol of the JAX package (a warm run, then a perturbed
 timed run) has no reason to exist here: the kernels are built and loaded
 before the clock starts, and the one solve is timed between
@@ -106,9 +107,10 @@ def solve(problem: Problem, method: str = "fista", *,
     to run the device set-up above ``ADMM_FENCE_DIM``, where it otherwise
     warns and falls back to 'fista'); 'bcd_batch' solves a grid and is
     reached through ``lambda_path``.  With ``mesh`` (a
-    ``parallel.mesh.ColumnGroup``) every rank of the group calls this with
-    the same problem and solves its column slab on the group's device
-    (``parallel/sharded.py``).  ``certify=True`` finishes with the f64
+    ``parallel.mesh.ColumnGroup``, ``RowGroup`` or ``GridGroup``) every
+    rank of the group calls this with the same problem and solves its
+    column slab, row slab or tile on the group's device
+    (``parallel/sharded.py``, ``row_sharded.py``, ``grid_sharded.py``).  ``certify=True`` finishes with the f64
     polish when the f32 solve stopped above tol.  Extra kwargs override
     SolverConfig fields."""
     if method == "bcd_batch":

@@ -11,6 +11,7 @@ lambda path and CV, JSONL metrics, snapshots and resume, plus ``--device``.
     python -m convex_optimization_tpu_torch.cli --config config5 --ci --mesh 1 --method bcd_pallas
     python -m convex_optimization_tpu_torch.cli --config config3 --ci --device cpu --mesh 2
     python -m convex_optimization_tpu_torch.cli --config config2 --ci --device cpu --mesh 2 --lambda-path 4
+    python -m convex_optimization_tpu_torch.cli --config config1 --ci --device cpu --mesh 2 --mesh-axis rows
 
 Every instance, named config or custom size, is drawn by the host
 generator (``core/datagen.make_lasso_instance_host``), whose numbers equal
@@ -28,9 +29,6 @@ import json
 import os
 import sys
 import tempfile
-
-ITEM_13 = "ROADMAP queue 1, item 13b"
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -73,14 +71,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "(picks lambda by held-out MSE; path length from "
                         "--lambda-path, default 10)")
     p.add_argument("--mesh", type=int, default=0,
-                   help="shard A's columns over this many ranks: one per "
-                        "card over NCCL, or gloo ranks with --device cpu; "
-                        "a solve (screened with --screen or config 3) or "
-                        "a --lambda-path runs on the slabs")
+                   help="shard A over this many ranks: one per card over "
+                        "NCCL, or gloo ranks with --device cpu; a solve "
+                        "(screened with --screen or config 3) or a "
+                        "--lambda-path runs on the slabs")
     p.add_argument("--mesh-axis", default="blocks",
                    choices=["blocks", "rows"],
                    help="blocks = column sharding (an m-vector all-reduce "
-                        f"per step); rows is not ported yet ({ITEM_13})")
+                        "per step); rows = row sharding (an n-vector "
+                        "all-reduce per step: the layout when m >> n)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--jsonl", help="write per-check metrics to this file")
     p.add_argument("--checkpoint", help="write a snapshot here after solving")
@@ -108,13 +107,24 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _mesh_rank_job(g, problem, method: str, solve_kw: dict, x0):
+def _axis_group(g, axis: str):
+    """The group of ``--mesh-axis`` over the ranks of ``g`` (the column
+    group every rank joins)."""
+    if axis == "rows":
+        from convex_optimization_tpu_torch.parallel.mesh import row_group
+
+        return row_group(g.device)
+    return g
+
+
+def _mesh_rank_job(g, problem, axis: str, method: str, solve_kw: dict, x0):
     """One rank of ``--mesh``: the sharded solve on this rank's device.
     Returns (the Result with x on the CPU, rank 0 only; this rank's kernel
     launch counts)."""
     from convex_optimization_tpu_torch.api import solve
     from convex_optimization_tpu_torch.ops import _build
 
+    g = _axis_group(g, axis)
     problem = problem.to(g.device)
     if x0 is not None:
         x0 = x0.to(g.device)
@@ -126,13 +136,14 @@ def _mesh_rank_job(g, problem, method: str, solve_kw: dict, x0):
     return res, dict(_build.launches)
 
 
-def _mesh_path_rank_job(g, problem, cfg, path_kw: dict):
+def _mesh_path_rank_job(g, problem, axis: str, cfg, path_kw: dict):
     """One rank of ``--mesh --lambda-path``: the sharded path on this
     rank's device.  Returns (the PathResult on the CPU, rank 0 only; this
     rank's kernel launch counts)."""
     from convex_optimization_tpu_torch.ops import _build
     from convex_optimization_tpu_torch.solvers.lambda_path import lambda_path
 
+    g = _axis_group(g, axis)
     pr = lambda_path(problem.to(g.device), cfg, mesh=g, **path_kw)
     if g.rank != 0:
         pr = None
@@ -143,13 +154,15 @@ def _mesh_path_rank_job(g, problem, cfg, path_kw: dict):
     return pr, dict(_build.launches)
 
 
-def _solve_mesh(problem, P: int, device, solve_kw: dict):
-    """The column-sharded solve over P spawned ranks (``_run_mesh``)."""
+def _solve_mesh(problem, P: int, device, axis: str, solve_kw: dict):
+    """The sharded solve over P spawned ranks (``_run_mesh``) on the
+    ``--mesh-axis`` layout."""
     kw = dict(solve_kw)
     method, x0 = kw.pop("method"), kw.pop("x0", None)
     if x0 is not None:
         x0 = x0.cpu()
-    return _run_mesh(problem, P, device, _mesh_rank_job, method, kw, x0)
+    return _run_mesh(problem, P, device, _mesh_rank_job, axis, method, kw,
+                     x0)
 
 
 def _run_mesh(problem, P: int, device, job, *args):
@@ -183,10 +196,6 @@ def _run_mesh(problem, P: int, device, job, *args):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.mesh_axis == "rows":
-        raise ValueError(
-            f"--mesh-axis rows (the row layout) is not ported yet ({ITEM_13})"
-            "; use --mesh-axis blocks")
 
     import torch
 
@@ -299,7 +308,8 @@ def main(argv=None) -> int:
         with M.WallTimer(device) as t:
             if mesh_n:
                 pr = _run_mesh(problem, mesh_n, device, _mesh_path_rank_job,
-                               scfg, dict(path_kw, path_len=lambda_path))
+                               args.mesh_axis, scfg,
+                               dict(path_kw, path_len=lambda_path))
             else:
                 pr = run_path(problem, scfg, path_len=lambda_path, **path_kw)
         nnz = torch.count_nonzero(pr.xs, dim=1).tolist()
@@ -346,7 +356,8 @@ def main(argv=None) -> int:
         prof = profile(activities=acts)
     with prof:
         if mesh_n:
-            res = _solve_mesh(problem, mesh_n, device, solve_kw)
+            res = _solve_mesh(problem, mesh_n, device, args.mesh_axis,
+                              solve_kw)
         else:
             res = solve(problem, **solve_kw)
     if args.profile:

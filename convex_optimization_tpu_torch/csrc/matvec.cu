@@ -5,7 +5,10 @@
 // Replace the Pallas kernels of convex_optimization_tpu/ops/matvec_pallas.py:
 //   K2 `_ax_kernel`    (wrapper ax_minus_b_t):  r = A x - b
 //   K3 `_atr_kernel`   (wrapper neg_at_r_t):    z = -A^T r - lam2 x
-//   K4 `_power_kernel` (wrapper block_power_t): ||A_j||_2^2 per block
+//   K4 `_power_kernel` (wrapper block_power_t): ||A_j||_2^2 per block,
+//      also as its two stages (block_gram_t: the Gram matrices;
+//      block_power_gram_t: the iteration on them), so that the row- and
+//      grid-sharded solvers sum the Grams of their row slabs in between
 //
 // What bounds them on the H100: K2 and K3 stream A once (4 m n bytes,
 // 4 GB at 10k x 100k: 1.19 ms at 3.35 TB/s; 1 GB at config 2's 5k x 50k:
@@ -645,6 +648,33 @@ void* atr_kernel(bool vec) {
   return vec ? (void*)neg_at_r_kernel<true> : (void*)neg_at_r_kernel<false>;
 }
 
+// The Gram stage's argument rules (cot_block_gram_t); sets the kernel's
+// instance, its threads and the tiles per side of a block.
+bool gram_args_ok(const float* A_t, const float* partials, int n_blocks,
+                  int B, int m, int tile, int S, int per_slice, int vec,
+                  void** gram, int* threads, int* nt) {
+  *gram = vec ? gram_instance<true>(tile, threads)
+              : gram_instance<false>(tile, threads);
+  *nt = B > 0 && tile > 0 ? (B + tile - 1) / tile : 0;
+  return !(*gram == nullptr || (gram_one_tile(tile) && *nt != 1)
+           || n_blocks < 1 || B < 1 || m < 1
+           || S < 1 || S > 65535 || per_slice < 1
+           || per_slice % kGramBK != 0
+           || (long long)per_slice * (S - 1) >= m
+           || (long long)per_slice * S < m || (S > 1 && partials == nullptr)
+           || (long long)n_blocks * tri_tiles(*nt) > 0x7fffffffLL
+           || (vec && (m % 4 != 0 || !aligned16(A_t))));
+}
+
+// The iteration stage's argument rules (cot_block_power_gram_t).
+bool power_args_ok(const float* w, int n_blocks, int B, int route,
+                   int iters) {
+  return !(n_blocks < 1 || B < 1 || iters < 0
+           || (route == 0 && power_smem(B) > kPowMaxSmem)
+           || (route == 1 && (w == nullptr || n_blocks > 65535))
+           || (route != 0 && route != 1));
+}
+
 }  // namespace
 
 extern "C" {
@@ -737,30 +767,18 @@ int cot_neg_at_r_t(const float* A2, const float* r, const float* x, float* z,
   return (int)cudaGetLastError();
 }
 
-// out[j] = safety * ||A_j||_2^2 estimate, j < n_blocks (the K4 note).
-// G holds n_blocks B x B floats; partials S times as many when S > 1
-// (else it may be null); w 2 n_blocks B floats on route 1 (else null).
-// tile: 80, 200 or 128; the m columns in S slices of per_slice (a
-// multiple of 32), none empty; vec: 16-byte copies, which need m % 4 ==
-// 0 and A_t 16-byte aligned.
-int cot_block_power_t(const float* A_t, float* out, float* G,
-                      float* partials, float* w, int n_blocks, int B, int m,
-                      int tile, int S, int per_slice, int route, int vec,
-                      int iters, float safety, cudaStream_t stream) {
-  int threads = 0;
-  void* gram = vec ? gram_instance<true>(tile, &threads)
-                   : gram_instance<false>(tile, &threads);
-  const int nt = B > 0 && tile > 0 ? (B + tile - 1) / tile : 0;
-  if (gram == nullptr || (gram_one_tile(tile) && nt != 1) || n_blocks < 1
-      || B < 1 || m < 1 || iters < 0
-      || S < 1 || S > 65535 || per_slice < 1 || per_slice % kGramBK != 0
-      || (long long)per_slice * (S - 1) >= m
-      || (long long)per_slice * S < m || (S > 1 && partials == nullptr)
-      || (long long)n_blocks * tri_tiles(nt) > 0x7fffffffLL
-      || (route == 0 && power_smem(B) > kPowMaxSmem)
-      || (route == 1 && (w == nullptr || n_blocks > 65535))
-      || (route != 0 && route != 1)
-      || (vec && (m % 4 != 0 || !aligned16(A_t)))) {
+// K4's Gram stage: G (n_blocks, B, B) = A_t[j] A_t[j]^T for every block
+// (the K4 note).  partials holds S times as many floats when S > 1 (else
+// it may be null).  tile: 80, 200 or 128; the m columns in S slices of
+// per_slice (a multiple of 32), none empty; vec: 16-byte copies, which
+// need m % 4 == 0 and A_t 16-byte aligned.
+int cot_block_gram_t(const float* A_t, float* G, float* partials,
+                     int n_blocks, int B, int m, int tile, int S,
+                     int per_slice, int vec, cudaStream_t stream) {
+  void* gram = nullptr;
+  int threads = 0, nt = 0;
+  if (!gram_args_ok(A_t, partials, n_blocks, B, m, tile, S, per_slice, vec,
+                    &gram, &threads, &nt)) {
     return (int)cudaErrorInvalidValue;
   }
   const size_t smem = gram_smem(tile);
@@ -773,14 +791,27 @@ int cot_block_power_t(const float* A_t, float* out, float* G,
   err = cudaLaunchKernel(gram, dim3(n_blocks * tri_tiles(nt), S),
                          dim3(threads), args, smem, stream);
   if (err != cudaSuccess) return (int)err;
-  const size_t count = (size_t)n_blocks * B * B;
   if (S > 1) {
+    const size_t count = (size_t)n_blocks * B * B;
     const size_t grid = (count + 255) / 256;
     gram_sum_kernel<<<(unsigned)(grid < 4096 ? grid : 4096), 256, 0,
                       stream>>>(partials, G, count, S);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
   }
+  return (int)cudaGetLastError();
+}
+
+// K4's iteration stage: out[j] = safety * the top eigenvalue estimate of
+// G_j (n_blocks B x B, symmetric) after iters steps from the tilted ones
+// vector (the K4 note).  route 0: G_j in shared memory (B <= 240); route
+// 1: one launch a step over G in global memory, w 2 n_blocks B floats
+// (else null).
+int cot_block_power_gram_t(const float* G, float* out, float* w,
+                           int n_blocks, int B, int route, int iters,
+                           float safety, cudaStream_t stream) {
+  if (!power_args_ok(w, n_blocks, B, route, iters)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaError_t err;
   if (route == 0) {
     const size_t psmem = power_smem(B);
     err = cudaFuncSetAttribute(power_smem_kernel,
@@ -814,6 +845,28 @@ int cot_block_power_t(const float* A_t, float* out, float* G,
       iters == 0 ? nullptr : w_buf[(iters - 1) & 1], w_buf[iters & 1], out,
       B, safety);
   return (int)cudaGetLastError();
+}
+
+// out[j] = safety * ||A_j||_2^2 estimate, j < n_blocks (the K4 note): the
+// Gram stage, then the iteration stage on it.  G holds n_blocks B x B
+// floats; partials and w as the two stages take them.  The arguments are
+// checked whole before anything is launched.
+int cot_block_power_t(const float* A_t, float* out, float* G,
+                      float* partials, float* w, int n_blocks, int B, int m,
+                      int tile, int S, int per_slice, int route, int vec,
+                      int iters, float safety, cudaStream_t stream) {
+  void* gram = nullptr;
+  int threads = 0, nt = 0;
+  if (!gram_args_ok(A_t, partials, n_blocks, B, m, tile, S, per_slice, vec,
+                    &gram, &threads, &nt)
+      || !power_args_ok(w, n_blocks, B, route, iters)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int err = cot_block_gram_t(A_t, G, partials, n_blocks, B, m, tile,
+                                   S, per_slice, vec, stream);
+  if (err != (int)cudaSuccess) return err;
+  return cot_block_power_gram_t(G, out, w, n_blocks, B, route, iters, safety,
+                                stream);
 }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
 """K2, K3, K4: one-pass matvecs and the per-block power iteration over the
-transposed block-major layout ``A_t`` (n_blocks, B, m).
+transposed block-major layout ``A_t`` (n_blocks, B, m); K4 also as its
+two stages, ``block_gram_t`` and ``block_power_gram_t``.
 
 Counterpart of ``convex_optimization_tpu/ops/matvec_pallas.py``.  The
 kernels are in ``csrc/matvec.cu`` (its notes give the designs); each
@@ -252,6 +253,12 @@ K4_SCRATCH_BYTES = 2 << 30
 K4_MAX_SMEM_BYTES = 227 * 1024
 
 
+def power_route(B: int) -> str:
+    """K4's iteration route at block width B: "smem" where G_j, v and w
+    fit K4_MAX_SMEM_BYTES, else "global"."""
+    return "smem" if 4 * (B * B + 2 * B) <= K4_MAX_SMEM_BYTES else "global"
+
+
 @dataclasses.dataclass(frozen=True)
 class PowerPlan:
     """K4's launch at (n_blocks, B, m) on one card."""
@@ -280,11 +287,17 @@ def power_tiling(nb: int, B: int, m: int, sms: int) -> PowerPlan:
         S = max(1, min(-(-2 * sms // ctas), m // K4_MIN_SLICE))
     per = -(-(-(-m // S)) // K4_STAGE_COLS) * K4_STAGE_COLS
     S = -(-m // per)
-    route = "smem" if 4 * (B * B + 2 * B) <= K4_MAX_SMEM_BYTES else "global"
+    route = power_route(B)
     per_block = 4 * B * B * (1 + (S if S > 1 else 0)) \
         + (8 * B if route == "global" else 0)
     chunk = max(1, min(nb, K4_SCRATCH_BYTES // per_block, 65535))
     return PowerPlan(tile, S, per, route, chunk)
+
+
+def _power_plan(A_t: torch.Tensor) -> PowerPlan:
+    nb, B, m = A_t.shape
+    sms = torch.cuda.get_device_properties(A_t.device).multi_processor_count
+    return power_tiling(nb, B, m, sms)
 
 
 def block_power_t(A_t: torch.Tensor, *, iters: int = 48,
@@ -297,8 +310,7 @@ def block_power_t(A_t: torch.Tensor, *, iters: int = 48,
         return block_power_t_plain(A_t, iters=iters, safety=safety)
     _check("A_t", A_t, A_t.shape, A_t.device)
     nb, B, m = A_t.shape
-    sms = torch.cuda.get_device_properties(A_t.device).multi_processor_count
-    plan = power_tiling(nb, B, m, sms)
+    plan = _power_plan(A_t)
     dev = A_t.device
     out = torch.empty((nb,), dtype=torch.float32, device=dev)
     c = plan.chunk
@@ -322,18 +334,100 @@ def block_power_t(A_t: torch.Tensor, *, iters: int = 48,
     return out
 
 
-def power_iteration(av, atu, v0: torch.Tensor, vdot=torch.dot, *,
-                    iters: int = 48, safety: float = 1.02) -> torch.Tensor:
+# K4 as two stages: the row- and grid-sharded set-ups form each row
+# slab's Grams, all-reduce them over the row ranks, and iterate on the
+# sum, which is the Gram of the whole column block.
+
+def block_gram_t_plain(A_t: torch.Tensor) -> torch.Tensor:
+    """Plain version of K4's Gram stage: G_j = A_t[j] A_t[j]^T."""
+    return torch.bmm(A_t, A_t.transpose(1, 2))
+
+
+def block_gram_t(A_t: torch.Tensor) -> torch.Tensor:
+    """Each block's Gram matrix G_j = A_t[j] A_t[j]^T, (n_blocks, B, B),
+    exactly symmetric: K4's first stage, on K4's plan."""
+    if not _on_cuda(A_t):
+        return block_gram_t_plain(A_t)
+    _check("A_t", A_t, A_t.shape, A_t.device)
+    nb, B, m = A_t.shape
+    plan = _power_plan(A_t)
+    dev = A_t.device
+    G = torch.empty((nb, B, B), dtype=torch.float32, device=dev)
+    c = plan.chunk
+    partials = (torch.empty((plan.slices, c, B, B), dtype=torch.float32,
+                            device=dev) if plan.slices > 1 else None)
+    vec = int(m % 4 == 0 and _aligned(A_t))
+    lib = _build.load()
+    for j0 in range(0, nb, c):
+        err = lib.cot_block_gram_t(
+            A_t[j0].data_ptr(), G[j0].data_ptr(),
+            None if partials is None else partials.data_ptr(),
+            min(c, nb - j0), B, m, plan.tile, plan.slices, plan.per_slice,
+            vec, _build.stream_ptr(dev))
+        _build.check(err, "block_gram_t")
+    _build.launches["block_gram_t"] += 1
+    return G
+
+
+def block_power_gram_t_plain(G: torch.Tensor, *, iters: int = 48,
+                             safety: float = 1.02) -> torch.Tensor:
+    """Plain version of K4's iteration stage: the TPU kernel's iterates
+    on G_j (w = G_j v, v = w / max(||w||, 1e-30)) from the tilted ones
+    vector, then v^T G_j v / max(v^T v, 1e-30) times ``safety``."""
+    nb, B, _ = G.shape
+    v = _power_start(B, G.dtype, G.device).expand(nb, B).unsqueeze(2)
+    for _ in range(iters):
+        w = torch.bmm(G, v)
+        v = w / torch.clamp(torch.linalg.vector_norm(w, dim=1, keepdim=True),
+                            min=1e-30)
+    num = torch.sum(v * torch.bmm(G, v), dim=(1, 2))
+    den = torch.clamp(torch.sum(v * v, dim=(1, 2)), min=1e-30)
+    return safety * num / den
+
+
+def block_power_gram_t(G: torch.Tensor, *, iters: int = 48,
+                       safety: float = 1.02) -> torch.Tensor:
+    """The top eigenvalue estimate of each symmetric G_j (n_blocks, B, B)
+    times ``safety``: K4's second stage (``power_tiling``'s route: G_j in
+    shared memory, or one launch a step over G in global memory)."""
+    if not _on_cuda(G):
+        return block_power_gram_t_plain(G, iters=iters, safety=safety)
+    _check("G", G, G.shape, G.device)
+    nb, B, _ = G.shape
+    if G.shape[2] != B:
+        raise ValueError(f"G must be (n_blocks, B, B), got {tuple(G.shape)}")
+    route = power_route(B)
+    dev = G.device
+    out = torch.empty((nb,), dtype=torch.float32, device=dev)
+    c = nb if route == "smem" else min(nb, 65535)
+    w = (torch.empty((2, c, B), dtype=torch.float32, device=dev)
+         if route == "global" else None)
+    lib = _build.load()
+    for j0 in range(0, nb, c):
+        err = lib.cot_block_power_gram_t(
+            G[j0].data_ptr(), out[j0:].data_ptr(),
+            None if w is None else w.data_ptr(), min(c, nb - j0), B,
+            int(route == "global"), int(iters), float(safety),
+            _build.stream_ptr(dev))
+        _build.check(err, "block_power_gram_t")
+    _build.launches["block_power_gram_t"] += 1
+    return out
+
+
+def power_iteration(av, atu, v0: torch.Tensor, vdot=torch.dot,
+                    udot=torch.dot, *, iters: int = 48,
+                    safety: float = 1.02) -> torch.Tensor:
     """||A||_2^2 by power iteration on A^T A from ``v0``: ``av(v)`` = A v,
-    ``atu(u)`` = A^T u, ``vdot`` the inner product of two n-vectors (the
-    column-sharded solver passes products and a dot that reduce over the
-    ranks, and its slice of the start)."""
+    ``atu(u)`` = A^T u, ``vdot`` and ``udot`` the inner products of two
+    n-vectors and of two m-vectors (the sharded solvers pass products and
+    dots that reduce over the ranks that hold slices of them, and their
+    slice of the start)."""
     v = v0 / torch.sqrt(vdot(v0, v0))
     for _ in range(iters):
         w = atu(av(v))
         v = w / torch.clamp(torch.sqrt(vdot(w, w)), min=1e-30)
     u = av(v)
-    return safety * torch.dot(u, u) / torch.clamp(vdot(v, v), min=1e-30)
+    return safety * udot(u, u) / torch.clamp(vdot(v, v), min=1e-30)
 
 
 def sin_start(n: int, dtype, device, lo: int = 0) -> torch.Tensor:

@@ -1,11 +1,15 @@
-"""Column-sharded FISTA and BCD over ``torch.distributed``.
+"""Column-sharded FISTA and BCD over ``torch.distributed``, and the
+routing of every sharded layout.
 
-Counterpart of ``convex_optimization_tpu/parallel/sharded.py`` (its column
-layout; the row- and grid-sharded solvers are not ported yet, ROADMAP
-queue 1, item 13b).  A's columns are split over the ranks of a
-``ColumnGroup``: each rank owns a contiguous slab of ``A_t`` blocks and
-the matching slice of x; the residual r = A x - b is replicated and kept
-in consensus by one all-reduce of an m-vector per iteration.
+Counterpart of ``convex_optimization_tpu/parallel/sharded.py``.
+``solve_sharded`` (behind ``api.solve(mesh=g)``) routes by ``g.axis`` as
+the JAX package routes by the mesh's axes: a ``GridGroup`` to
+``grid_sharded.py``, a ``RowGroup`` to ``row_sharded.py``, a
+``ColumnGroup`` to the column layout here.  A's columns are split over
+the ranks of a ``ColumnGroup``: each rank owns a contiguous slab of
+``A_t`` blocks and the matching slice of x; the residual r = A x - b is
+replicated and kept in consensus by one all-reduce of an m-vector per
+iteration.
 
 Every rank runs the same host loop (one sync per check); where the JAX
 package runs one shard_map'd program, the ranks here meet only at the
@@ -16,7 +20,9 @@ where the ring consensus leaves their residuals a rounding apart.
 
 The set-up (block width, the slab, K4 or L_total, the slab's column
 norms) is built once by ``prepare_sharded`` and reused by every point of
-a sharded lambda path (``solvers/lambda_path.py``).
+a sharded lambda path (``solvers/lambda_path.py``); ``prepare_sharded``,
+``sharded_state``, ``run_sharded``, ``gather_x`` and
+``sharded_lambda_max`` take any of the three groups.
 
     FISTA step:  K3 on the slab, prox, K2 on the slab; one all-reduce of
                  [A_loc x_new, <y - x_new, x_new - x>] (m + 1 floats)
@@ -65,25 +71,33 @@ from convex_optimization_tpu_torch.ops.matvec import (
     power_iteration,
     sin_start,
 )
+from convex_optimization_tpu_torch.parallel import grid_sharded as gs
+from convex_optimization_tpu_torch.parallel import row_sharded as rs
+from convex_optimization_tpu_torch.parallel._loop import (
+    check_loop,
+    finish_check,
+)
 from convex_optimization_tpu_torch.parallel.collectives import (
     all_gather,
-    broadcast0,
     pmax,
     psum,
     reduce_scatter_gather,
     ring_psum,
     ring_psum_chunked,
 )
-from convex_optimization_tpu_torch.parallel.mesh import BLOCKS, ColumnGroup
+from convex_optimization_tpu_torch.parallel.mesh import (
+    GRID,
+    ROWS,
+    ColumnGroup,
+    check_group,
+)
 from convex_optimization_tpu_torch.solvers.bcd import pick_block_size
 from convex_optimization_tpu_torch.solvers.common import (
     SolverConfig,
     SolveState,
     count_nnz,
-    record_check,
 )
 from convex_optimization_tpu_torch.solvers.fista import (
-    continue_loop,
     finish_step,
     init_state,
     momentum_point,
@@ -164,27 +178,7 @@ def _gap_check_local(loc: Problem, s: SolveState, g: ColumnGroup,
     info = gap_from_parts(rho_dot_b=-torch.dot(r, loc.b),
                           rho_aug_sq=rr + loc.lam2 * x_sq,
                           g_value=g_val, dual_norm_value=dn)
-    bc = broadcast0(torch.stack([info.gap, info.primal, info.dual,
-                                 info.rel_gap, nnz, info.alpha,
-                                 torch.sqrt(rr)]), g)
-    keep = s.keep_mask
-    if col_norms is not None:
-        keep = keep & pen.screen_keep(z, bc[5], bc[0], col_norms,
-                                      r_norm=bc[6], primal=bc[1])
-    vals = bc.tolist()
-    host = dict(zip(("gap", "primal", "dual", "rel_gap"), vals[:4]))
-    return record_check(s, host, x, int(vals[4]), keep)
-
-
-def _run(loc: Problem, state: SolveState, cfg: SolverConfig, g: ColumnGroup,
-         step, col_norms: torch.Tensor | None) -> SolveState:
-    """The check loop of both solvers: ``gap_every`` steps, one check."""
-    state = _gap_check_local(loc, state, g, col_norms)
-    while continue_loop(state, cfg):
-        for _ in range(cfg.gap_every):
-            state = step(state)
-        state = _gap_check_local(loc, state, g, col_norms)
-    return state
+    return finish_check(s, info, nnz, rr, z, pen, g, col_norms)
 
 
 def sharded_fista(loc: Problem, L_total: float, state: SolveState,
@@ -214,7 +208,8 @@ def sharded_fista(loc: Problem, L_total: float, state: SolveState,
         return finish_step(s, cfg, t_next, y, x_new, tot[:m] - loc.b,
                            tot[m] if restart else None)
 
-    return _run(loc, state, cfg, g, step, col_norms)
+    return check_loop(state, cfg, step, lambda st: _gap_check_local(
+        loc, st, g, col_norms))
 
 
 def _slab_sweep(loc: Problem, B: int, cfg: SolverConfig):
@@ -298,7 +293,8 @@ def sharded_bcd(loc: Problem, block_L: torch.Tensor, state: SolveState,
         return s._replace(x=x + gamma * (x_new - x), r=r + gamma * dr,
                           k=s.k + 1)
 
-    return _run(loc, state, cfg, g, step, col_norms)
+    return check_loop(state, cfg, step, lambda st: _gap_check_local(
+        loc, st, g, col_norms))
 
 
 def _sharded_spectral_norm_sq(loc: Problem, g: ColumnGroup) -> torch.Tensor:
@@ -319,7 +315,10 @@ def sharded_lambda_max(loc: Problem, g: ColumnGroup,
                        b: torch.Tensor | None = None) -> float:
     """lambda_max of the whole problem from the slabs: the raw dual norm
     of the slab's A^T b (K3 on the slab, ``lambda_max_t``), then pmax.
-    ``b`` replaces the problem's (a row-masked b)."""
+    ``b`` replaces the problem's (a row-masked b).  With a RowGroup, A^T
+    b is all-reduced over the row slabs first."""
+    if g.axis == ROWS:
+        return rs.rows_lambda_max(loc, g, b)
     lm = lambda_max_t(loc.A_t, loc.b if b is None else b, loc.penalty)
     return float(pmax(lm.reshape(1), g)[0])
 
@@ -328,27 +327,33 @@ class ShardedSetup(NamedTuple):
     """What a sharded solve builds once; a sharded lambda path reuses it
     at every point."""
 
-    loc: Problem                    # this rank's slab at the sweep's width
+    loc: Problem                    # this rank's slab (column, row) or
+                                    # tile (grid) at the sweep's width
     method: str                     # "fista", "ista" or "bcd"
     cfg: SolverConfig
-    lipschitz: object               # BCD: the slab's block_L (K4); FISTA:
+    lipschitz: object               # BCD: the shard's block_L (K4); FISTA:
                                     # L_total (float)
-    col_norms: torch.Tensor | None  # the slab's augmented column norms
-                                    # (screen_every > 0), else None
+    col_norms: torch.Tensor | None  # the shard's augmented column norms
+                                    # over all rows (screen_every > 0),
+                                    # else None
     setup_s: float                  # seconds of K4 or L_total and the norms
 
 
 def prepare_sharded(problem: Problem, method: str, cfg: SolverConfig,
-                    g: ColumnGroup) -> ShardedSetup:
-    """The set-up of ``method`` ("fista", "ista" or "bcd") on this rank: the block width (K1's
-    pad-free width for ``bcd`` with ``use_pallas``, as ``solve`` picks it
-    on one device), the slab (``shard_columns``), the kernel build, then,
-    timed, K4 on the slab (BCD) or L_total by the power iteration over the
-    slabs (FISTA), and the slab's column norms when the checks screen."""
-    if getattr(g, "axis", None) != BLOCKS:
-        raise NotImplementedError(
-            "only the column layout is ported; the row and grid layouts "
-            "are not yet (ROADMAP queue 1, item 13b)")
+                    g) -> ShardedSetup:
+    """The set-up of ``method`` ("fista", "ista" or "bcd") on this rank.
+    The row and grid layouts: ``row_sharded.prepare_rows``,
+    ``grid_sharded.prepare_grid``.  The column layout: the block width
+    (K1's pad-free width for ``bcd`` with ``use_pallas``, as ``solve``
+    picks it on one device), the slab (``shard_columns``), the kernel
+    build, then, timed, K4 on the slab (BCD) or L_total by the power
+    iteration over the slabs (FISTA), and the slab's column norms when the
+    checks screen."""
+    if g.axis == GRID:
+        return gs.prepare_grid(problem, method, cfg, g)
+    if g.axis == ROWS:
+        return rs.prepare_rows(problem, method, cfg, g)
+    check_group(g)
     P = g.size
     if problem.n % P != 0:
         raise ValueError(f"n={problem.n} must divide over {P} shards")
@@ -380,12 +385,37 @@ def prepare_sharded(problem: Problem, method: str, cfg: SolverConfig,
                         setup_s=time.perf_counter() - t0)
 
 
-def sharded_state(setup: ShardedSetup, g: ColumnGroup,
+def column_shards(g) -> ColumnGroup | None:
+    """The ranks over which x is split: a ColumnGroup itself, a
+    GridGroup's blocks; None for a RowGroup (x replicated)."""
+    return None if g.axis == ROWS else g.blocks if g.axis == GRID else g
+
+
+def x_slice(setup: ShardedSetup, g, x: torch.Tensor) -> torch.Tensor:
+    """This rank's part of a full-length x."""
+    cg = column_shards(g)
+    if cg is None:
+        return x
+    n_loc = setup.loc.n
+    return x[cg.rank * n_loc:(cg.rank + 1) * n_loc]
+
+
+def gather_x(x_loc: torch.Tensor, g) -> torch.Tensor:
+    """The full x from this rank's part, on every rank."""
+    cg = column_shards(g)
+    return x_loc if cg is None else all_gather(x_loc, cg)
+
+
+def sharded_state(setup: ShardedSetup, g,
                   x_loc: torch.Tensor | None = None) -> SolveState:
-    """A fresh state (counters, history and keep mask reset) at the slab's
-    x ``x_loc`` (zeros when None), its residual by K2 on the slab and a
-    psum."""
+    """A fresh state (counters, history and keep mask reset) at this
+    rank's part of x ``x_loc`` (``x_slice``; zeros when None), its
+    residual by K2 on the shard and, but for the row layout, a psum."""
     loc = setup.loc
+    if g.axis == ROWS:
+        return rs.rows_state(loc, x_loc)
+    if g.axis == GRID:
+        return gs.grid_state(loc, g, x_loc)
     state = init_state(loc, None)
     if x_loc is None:
         return state
@@ -394,32 +424,43 @@ def sharded_state(setup: ShardedSetup, g: ColumnGroup,
     return state._replace(x=x, r=r, x_best=x, x_prev=x, r_prev=r)
 
 
-def run_sharded(setup: ShardedSetup, state: SolveState, g: ColumnGroup,
+def run_sharded(setup: ShardedSetup, state: SolveState, g,
                 lam1: float | None = None) -> SolveState:
-    """The sharded solver of ``setup`` from ``state``, at ``lam1`` when
-    given (a path point), else at the problem's."""
+    """The sharded solver of ``setup`` on ``g``'s layout from ``state``,
+    at ``lam1`` when given (a path point), else at the problem's."""
     loc = setup.loc if lam1 is None else setup.loc.with_lam1(lam1)
-    solver = sharded_bcd if setup.method == "bcd" else sharded_fista
+    bcd = setup.method == "bcd"
+    if g.axis == ROWS:
+        solver = rs.sharded_bcd_rows if bcd else rs.sharded_fista_rows
+    elif g.axis == GRID:
+        solver = gs.grid_sharded_bcd if bcd else gs.grid_sharded_fista
+    else:
+        solver = sharded_bcd if bcd else sharded_fista
     return solver(loc, setup.lipschitz, state, setup.cfg, g,
                   setup.col_norms)
 
 
-def screened_count(state: SolveState, g: ColumnGroup) -> int:
+def screened_count(state: SolveState, g) -> int:
     """Columns of the whole problem that the last check froze."""
     keep = state.keep_mask
     frozen = (keep.numel() - keep.sum()).to(torch.float64).reshape(1)
-    return int(psum(frozen, g)[0])
+    cg = column_shards(g)
+    return int((frozen if cg is None else psum(frozen, cg))[0])
 
 
-def solve_sharded(problem: Problem, method: str, g: ColumnGroup, x0=None,
+def solve_sharded(problem: Problem, method: str, g, x0=None,
                   cfg: Optional[SolverConfig] = None, **cfg_overrides):
-    """The column-sharded solve behind ``api.solve(mesh=g)``: every rank
-    of ``g`` calls it with the same ``problem`` (on the CPU or on
-    ``g.device``) and gets the same Result, whose x is gathered from the
-    slabs; ``x0`` is the full start.  BCD's block_L is K4 on each slab,
-    FISTA's L_total the power iteration over the slabs.  With
-    ``screen_every > 0`` every check screens (``Result.screened``: the
-    columns of the whole problem the last check froze)."""
+    """The sharded solve behind ``api.solve(mesh=g)``: every rank of ``g``
+    (a ColumnGroup, RowGroup or GridGroup) calls it with the same
+    ``problem`` (on the CPU or on ``g.device``) and gets the same Result,
+    whose x is gathered to the full n; ``x0`` is the full start.  The
+    column layout: BCD's block_L is K4 on each slab, FISTA's L_total the
+    power iteration over the slabs.  The row and grid layouts take
+    fista, ista, bcd and bcd_pallas (one program for the last two, as in
+    the JAX package); their ``Result.method`` reads "row_sharded_<m>" or
+    "grid_sharded_<m>".  With ``screen_every > 0`` every check screens
+    (``Result.screened``: the columns of the whole problem the last check
+    froze)."""
     from convex_optimization_tpu_torch.api import Result
 
     cfg = SolverConfig() if cfg is None else cfg
@@ -430,13 +471,20 @@ def solve_sharded(problem: Problem, method: str, g: ColumnGroup, x0=None,
         cfg_overrides.setdefault("use_pallas", True)
     if cfg_overrides:
         cfg = dataclasses.replace(cfg, **cfg_overrides)
-    if method not in ("fista", "ista", "bcd"):
-        raise ValueError(f"unknown sharded method {method!r}")
+    check_group(g)
+    layout = {GRID: "grid", ROWS: "row"}.get(g.axis)
+    if layout is not None:
+        if method not in ("fista", "ista", "bcd"):
+            raise ValueError(f"{layout} sharding supports fista/ista/bcd, "
+                             f"got {method!r}")
+        prefix = f"{layout}_sharded"
+    else:
+        if method not in ("fista", "ista", "bcd"):
+            raise ValueError(f"unknown sharded method {method!r}")
+        prefix = "sharded"
     setup = prepare_sharded(problem, method, cfg, g)
-    n_loc = setup.loc.n
-    state = sharded_state(
-        setup, g,
-        None if x0 is None else x0[g.rank * n_loc:(g.rank + 1) * n_loc])
+    state = sharded_state(setup, g,
+                          None if x0 is None else x_slice(setup, g, x0))
     dev = g.device
     _sync(dev)
     t1 = time.perf_counter()
@@ -444,9 +492,9 @@ def solve_sharded(problem: Problem, method: str, g: ColumnGroup, x0=None,
     _sync(dev)
     wall = time.perf_counter() - t1
     return Result(
-        x=all_gather(final.x_best, g), gap=final.best_gap,
+        x=gather_x(final.x_best, g), gap=final.best_gap,
         rel_gap=final.best_rel_gap, primal=final.best_primal,
         iterations=final.k, converged=final.best_rel_gap <= cfg.tol,
         wall_time_s=wall, history=final.history.trimmed(),
-        method=f"sharded_{method}", config=cfg, setup_time_s=setup.setup_s,
+        method=f"{prefix}_{method}", config=cfg, setup_time_s=setup.setup_s,
         screened=screened_count(final, g) if cfg.screen_every > 0 else 0)

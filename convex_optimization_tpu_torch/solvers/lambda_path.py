@@ -21,14 +21,17 @@ warm start (K2/K3 on the full ``A_t``) and runs FISTA on the kept
 columns.  Every warm start's residual comes from K2, and the grid's
 lam_max from the witness kernel K3 (``lambda_max_t``).
 
-With ``mesh`` (a ``parallel.mesh.ColumnGroup``) the path runs
-column-sharded, as the JAX package's ``_lambda_path_sharded`` (its
-``lambda_path.py:416-525``, the column layout): 'fista' / 'ista' /
-'bcd' / 'bcd_pallas' solve the points one after another on the slabs
-(``parallel/sharded.py``: one set-up for the whole path; each point
-starts at the previous point's best iterate with its counters and keep
-mask reset) and return every point's gathered best iterate; 'bcd_batch'
-runs the grid at once on the slabs (``solvers/batched_path.py``).
+With ``mesh`` (a ``parallel.mesh.ColumnGroup`` or ``RowGroup``) the path
+runs sharded, as the JAX package's ``_lambda_path_sharded`` (its
+``lambda_path.py:416-525``): 'fista' / 'ista' / 'bcd' / 'bcd_pallas'
+solve the points one after another on the slabs (``parallel/sharded.py``
+and ``row_sharded.py``: one set-up for the whole path; each point starts
+at the previous point's best iterate with its counters and keep mask
+reset) and return every point's gathered best iterate; 'bcd_batch' runs
+the grid at once on column slabs (``solvers/batched_path.py``) and
+refuses a RowGroup.  A ``GridGroup`` runs what the JAX package runs on a
+grid mesh: the column path over its blocks sub-group, the same on every
+row of ranks.
 """
 
 from __future__ import annotations
@@ -47,6 +50,11 @@ from convex_optimization_tpu_torch.core.objective import (
 )
 from convex_optimization_tpu_torch.core.problem import Problem
 from convex_optimization_tpu_torch.ops.bcd_sweep import pick_block_size_t
+from convex_optimization_tpu_torch.parallel.mesh import (
+    GRID,
+    ROWS,
+    check_group,
+)
 from convex_optimization_tpu_torch.ops.matvec import (
     ax_minus_b_t,
     block_power_t,
@@ -125,7 +133,15 @@ def lambda_path(
     if mesh is not None:
         if compact:
             raise NotImplementedError("compact paths are single-device")
+        check_group(mesh)
+        if mesh.axis == GRID:
+            mesh = mesh.blocks
         if method == "bcd_batch":
+            if mesh.axis == ROWS:
+                raise ValueError(
+                    "method='bcd_batch' runs on column slabs only: pass a "
+                    "ColumnGroup, or a RowGroup with method='fista', "
+                    "'ista', 'bcd' or 'bcd_pallas'")
             from convex_optimization_tpu_torch.solvers.batched_path import (
                 batched_lambda_path,
             )
@@ -378,18 +394,16 @@ def _compact_path(problem: Problem, cfg: SolverConfig,
 def _sharded_path(problem: Problem, cfg: SolverConfig, g, path_len: int,
                   lam_min_frac: float, lambdas, method: str) -> PathResult:
     """The JAX package's sharded sequential path (its
-    ``lambda_path.py:416-525``, column layout): the sharded set-up once
-    (``parallel/sharded.prepare_sharded``), then each point from the
-    previous point's best iterate on the slab, with a fresh residual (K2
-    on the slab and a psum), the counters and the keep mask reset.  As in
+    ``lambda_path.py:416-525``, the column and row layouts): the sharded
+    set-up once (``parallel/sharded.prepare_sharded``), then each point
+    from the previous point's best iterate on the slab, with a fresh
+    residual (K2 on the slab, and a psum on the column layout), the
+    counters and the keep mask reset.  As in
     the JAX package, 'ista' sets no momentum=False and the BCD methods
     differ in ``use_pallas``.  The stop decisions inside each point are
     rank 0's (``_gap_check_local``), so every rank leaves every point at
     the same check."""
     from convex_optimization_tpu_torch.parallel import sharded as sh
-    from convex_optimization_tpu_torch.parallel.collectives import (
-        all_gather,
-    )
 
     if method not in ("fista", "ista", "bcd", "bcd_pallas"):
         raise ValueError(
@@ -412,7 +426,7 @@ def _sharded_path(problem: Problem, cfg: SolverConfig, g, path_len: int,
         state = sh.run_sharded(setup, sh.sharded_state(setup, g, x_warm), g,
                                lam)
         x_warm = state.x_best
-        xs.append(all_gather(state.x_best, g))
+        xs.append(sh.gather_x(state.x_best, g))
         gaps.append(state.best_rel_gap)
         iters.append(state.k)
         hists.append(state.history.trimmed())

@@ -20,8 +20,10 @@ yardstick of K4's first phase), the bound of the Gram design's work and of
 the first design's (`chip_smoke.power_work`), each CUDA kernel's mean
 device time per call from `torch.profiler`, K4's plan where the tree has
 `power_tiling`, and the card's name and power limit.  A first line per
-tree gives the seconds of compiling csrc/matvec.cu alone.  Needs a CUDA
-card; imports nothing of JAX.
+tree gives the seconds of compiling csrc/matvec.cu alone, and a line per
+shape requires every tree's K4 to give the same bits (with --root: a
+change that must keep K4's results).  Needs a CUDA card; imports nothing
+of JAX.
 """
 
 from __future__ import annotations
@@ -113,11 +115,18 @@ def main() -> None:
             "bound_ms": cs.bound_ms(cs.power_work(nb, B, m)["gram"]),
             "first_design_bound_ms": cs.bound_ms(
                 cs.power_work(nb, B, m)["first_design"])}
+        ests = []
         for t in trees:
-            print(json.dumps(run(cs, trace_us, t, A_t, plain) | common | {
+            out = run(cs, trace_us, t, A_t, plain)
+            ests.append(out.pop("est"))
+            print(json.dumps(out | common | {
                 "root": t["root"], "shape": name, "A_t": list(shape),
                 "gpu": gpu, "power_limit": power}), flush=True)
-        del A_t, flat, plain
+        same = all(torch.equal(e, ests[0]) for e in ests)
+        print(json.dumps({"shape": name, "trees_give_the_same_bits": same,
+                          "roots": [t["root"] for t in trees]}), flush=True)
+        cs.require(same, f"{name}: K4's bits differ between the trees")
+        del A_t, flat, plain, ests
 
 
 def run(cs, trace_us, tree: dict, A_t, plain) -> dict:
@@ -131,7 +140,8 @@ def run(cs, trace_us, tree: dict, A_t, plain) -> dict:
     cs.require(same, f"{tree['root']}: K4 differs run to run")
     once = cs.time_ms(lambda: mv.block_power_t(A_t), 1)
     reps = max(1, min(20, int(2000 / max(once, 1e-3))))
-    out = {"ms": cs.time_ms(lambda: mv.block_power_t(A_t), reps),
+    out = {"est": est,
+           "ms": cs.time_ms(lambda: mv.block_power_t(A_t), reps),
            "reps": reps, "max_rel_err": rel, "two_launches_equal": same,
            "kernels_us": trace_us(lambda: mv.block_power_t(A_t),
                                   calls=min(reps, 3))}

@@ -20,8 +20,9 @@ The port CLI alone: the named configs' CI twins, a lambda path (every row
 <= 1e-4 and nnz non-decreasing, as ``tests/test_utils_cli.py`` checks the
 JAX CLI), CV, ``--path-compact``, ``--resume``, ``--jsonl``, ``--plot``,
 ``--profile``, ``--mesh 2`` with config 3's screening and with a lambda
-path against the single-device CLI, and the refusals (the row layout
-names ROADMAP item 13b; no card without ``--device cpu``).
+path against the single-device CLI, ``--mesh 2 --mesh-axis rows``
+against the JAX CLI's row layout, and the refusal of a run without
+``--device cpu`` where there is no card.
 """
 
 import json
@@ -169,10 +170,28 @@ def test_plot_and_profile(tmp_path, capsys):
     assert os.path.getsize(os.path.join(prof, "trace.json")) > 0
 
 
-def test_row_layout_names_item_13():
-    with pytest.raises(ValueError, match="item 13"):
-        main(["--device", "cpu", "--config", "config1", "--ci", "--mesh",
-              "2", "--mesh-axis", "rows"])
+def test_row_layout_names_item_13(tmp_path, capsys):
+    """``--mesh 2 --mesh-axis rows``, which refused before the row layout
+    was ported (the name is kept): the port's row-sharded FISTA over 2
+    gloo ranks against the JAX CLI's over 2 CPU devices, on config 1's CI
+    size drawn by the host generator in both (``--polish`` makes the JAX
+    CLI draw it so): the same lambda, both at or below tol (the f32 gap,
+    or the polish's certificate), the same nnz, x within 5e-5 (the row
+    FISTA's parity tolerance, ``tests/test_torch_row_sharded.py``)."""
+    argv = ["--m", "128", "--n", "512", "--polish", "--tol", "1e-6",
+            "--mesh", "2", "--mesh-axis", "rows"]
+    snaps = {k: str(tmp_path / f"{k}.npz") for k in ("jax", "port")}
+    assert jax_main(argv + ["--checkpoint", snaps["jax"]]) == 0
+    out_j = _last_json(capsys)
+    out_p = _port(argv + ["--checkpoint", snaps["port"]], capsys)
+    assert out_p["method"] == "row_sharded_fista" == out_j["method"]
+    snap_j, snap_p = jax_load_snapshot(snaps["jax"]), \
+        ckpt.load_snapshot(snaps["port"])
+    assert snap_p.lam1 == pytest.approx(snap_j.lam1, rel=1e-6)
+    for out in (out_j, out_p):
+        assert out.get("certified_rel_gap", out["rel_gap"]) <= 1e-6
+    assert out_p["nnz"] == out_j["nnz"]
+    np.testing.assert_allclose(snap_p.x, snap_j.x, atol=5e-5)
 
 
 @pytest.mark.parametrize("argv", [

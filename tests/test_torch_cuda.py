@@ -65,6 +65,10 @@ from convex_optimization_tpu_torch.ops.bcd_sweep_batch import (
 from convex_optimization_tpu_torch.ops.matvec import (
     ax_minus_b_t,
     ax_minus_b_t_plain,
+    block_gram_t,
+    block_gram_t_plain,
+    block_power_gram_t,
+    block_power_gram_t_plain,
     block_power_t,
     block_power_t_plain,
     neg_at_r_t,
@@ -239,6 +243,50 @@ def test_block_power_kernel_zero_and_rank_one_blocks(cuda, m, B):
     assert abs(float(est[1]) - want) <= 1e-5 * want
     torch.testing.assert_close(est[2], block_power_t_plain(A_t[2:])[0],
                                rtol=1e-4, atol=0.0)
+
+
+#: K4's two stages: the smem and global routes, a split m, a ragged m
+STAGE_SHAPES = [(256, 1024, 32), (10_000, 80 * 16, 80),
+                (1000, 200 * 4, 200), (600, 300 * 3, 300),
+                (100_000, 80, 80), (1003, 200 * 3, 200)]
+
+
+@pytest.mark.parametrize("m,n,B", STAGE_SHAPES)
+def test_block_power_stages_match_plain(cuda, m, n, B):
+    """K4's Gram stage against ``bmm`` (1e-5 of each G_j's diagonal scale,
+    exactly symmetric) and its iteration stage on that G against the plain
+    iteration (1e-4 relative); each launched twice gives the same bits,
+    and each wrapper counts one launch."""
+    p, _ = _data(m, n, B, cuda)
+    before = dict(_build.launches)
+    G = block_gram_t(p.A_t)
+    scale = torch.diagonal(G, dim1=1, dim2=2).amax(dim=1)[:, None, None]
+    err = (G - block_gram_t_plain(p.A_t)).abs() / scale
+    assert float(err.max()) <= 1e-5
+    assert torch.equal(G, G.transpose(1, 2))
+    assert torch.equal(G, block_gram_t(p.A_t))
+    est = block_power_gram_t(G)
+    torch.testing.assert_close(est, block_power_gram_t_plain(G), rtol=1e-4,
+                               atol=0.0)
+    assert torch.equal(est, block_power_gram_t(G))
+    for name in ("block_gram_t", "block_power_gram_t"):
+        assert _build.launches[name] == before.get(name, 0) + 2
+
+
+@pytest.mark.parametrize("m,n,B", STAGE_SHAPES)
+def test_block_power_stages_compose_to_block_power_t(cuda, m, n, B):
+    """The two stages in turn launch ``block_power_t``'s kernels in its
+    order (one chunk at these shapes): the same bits.  The Grams of two
+    row halves summed, then iterated, equal ``block_power_t`` on the
+    whole A_t to 1e-4 relative (the row-sharded set-up)."""
+    p, _ = _data(m, n, B, cuda)
+    whole = block_power_t(p.A_t)
+    assert torch.equal(block_power_gram_t(block_gram_t(p.A_t)), whole)
+    h = m // 2
+    G = (block_gram_t(p.A_t[..., :h].contiguous())
+         + block_gram_t(p.A_t[..., h:].contiguous()))
+    torch.testing.assert_close(block_power_gram_t(G), whole, rtol=1e-4,
+                               atol=0.0)
 
 
 @pytest.mark.parametrize("kind", ["l1", "nonneg_l1"])
