@@ -1,0 +1,10 @@
+"""ms per iteration inside the program's solver loop: the ``cot.loop``
+spans of every point and chunk over the iterations they ran, in the
+device-only profiled request (``benchlib/spans.py``).  Unlike
+``ms_per_iter.path``, no call set-up, warm starts or confirmation."""
+
+from benchlib.spans import loop_ms_per_iter
+
+
+def read(rec):
+    return loop_ms_per_iter()

@@ -32,6 +32,7 @@ from convex_optimization_tpu_torch.solvers import bcd as bcd_mod
 from convex_optimization_tpu_torch.solvers import fista as fista_mod
 from convex_optimization_tpu_torch.solvers.common import SolverConfig
 from convex_optimization_tpu_torch.utils.device import sync as _sync
+from convex_optimization_tpu_torch.utils.trace import span
 
 #: ADMM's scale fence: above this min(m, n) the JAX package measured the
 #: float32 eigh of an ill-conditioned Gram stalling the solve near 1e-2
@@ -53,7 +54,9 @@ class Result:
     history: dict            # convergence history (numpy arrays)
     method: str
     config: SolverConfig
-    setup_time_s: float = 0.0   # Lipschitz constants (K4, or L_total)
+    setup_time_s: float = 0.0   # the call's own set-up: Lipschitz
+                                # constants (K4 and the sweep's plan, or
+                                # L_total), the screen's column norms
     screened: int = 0        # coordinates the last check's gap-safe screen
                              # froze (screen_every > 0; not in the JAX package)
 
@@ -112,7 +115,8 @@ def solve(problem: Problem, method: str = "fista", *,
     column slab, row slab or tile on the group's device
     (``parallel/sharded.py``, ``row_sharded.py``, ``grid_sharded.py``).  ``certify=True`` finishes with the f64
     polish when the f32 solve stopped above tol.  Extra kwargs override
-    SolverConfig fields."""
+    SolverConfig fields.  The call is the span ``cot.solve``
+    (``utils/trace``)."""
     if method == "bcd_batch":
         raise ValueError(
             "method 'bcd_batch' solves a LAMBDA GRID, not a single point — "
@@ -120,6 +124,12 @@ def solve(problem: Problem, method: str = "fista", *,
     if method not in ("bcd", "bcd_pallas", "fista", "ista", "fista_ws",
                       "bcd_ws", "admm"):
         raise ValueError(f"unknown method {method!r}")
+    with span("cot.solve", method=method):
+        return _solve(problem, method, x0, cfg, mesh, certify, cfg_overrides)
+
+
+def _solve(problem: Problem, method: str, x0, cfg, mesh, certify: bool,
+           cfg_overrides: dict) -> Result:
     if mesh is not None:
         from convex_optimization_tpu_torch.parallel.sharded import (
             solve_sharded,
@@ -143,7 +153,7 @@ def solve(problem: Problem, method: str = "fista", *,
             f"admm at min(m, n) > {ADMM_FENCE_DIM} stalls ~1e-2 rel gap "
             "(float32 eigh accuracy, measured by the JAX package) — falling "
             "back to FISTA.  Pass admm_force=True to run ADMM anyway, or "
-            "admm_setup='host' for the float64 host eigh.", stacklevel=2)
+            "admm_setup='host' for the float64 host eigh.", stacklevel=3)
         return solve(problem, "fista", x0=x0, cfg=cfg, certify=certify)
     if method in ("fista", "ista"):
         res = _solve_fista(problem, method, x0, cfg)
@@ -219,17 +229,17 @@ def _solve_fista(problem: Problem, method: str, x0, cfg: SolverConfig
     if device.type == "cuda":
         _build.load()
     _sync(device)
-    t0 = time.perf_counter()
-    L_total = float(spectral_norm_sq_t(problem.A_t)) + problem.lam2
-    col_norms = fista_mod.screen_norms(problem, cfg, None)
-    _sync(device)
-    setup_s = time.perf_counter() - t0
+    with span("cot.setup") as setup:
+        L_total = float(spectral_norm_sq_t(problem.A_t)) + problem.lam2
+        col_norms = fista_mod.screen_norms(problem, cfg, None)
+        _sync(device)
     state0 = fista_mod.init_state(problem, x0)
     _sync(device)
-    t1 = time.perf_counter()
-    final = fista_mod.fista(problem, L_total, state0, cfg, col_norms)
-    _sync(device)
-    return _result(final, method, cfg, time.perf_counter() - t1, setup_s)
+    with span("cot.loop") as loop:
+        final = fista_mod.fista(problem, L_total, state0, cfg, col_norms)
+        _sync(device)
+    loop.set(iterations=final.k)
+    return _result(final, method, cfg, loop.seconds, setup.seconds)
 
 
 def _result(final, method: str, cfg: SolverConfig, wall: float,
@@ -275,24 +285,24 @@ def _solve_bcd(problem: Problem, method: str, x0, cfg: SolverConfig
             x0 = torch.nn.functional.pad(x0, (0, pad))
     problem = problem.with_block(bs)
 
-    if cfg.use_pallas:
-        bcd_mod.prepare_sweep(problem.A_t)
-
+    if cfg.use_pallas and device.type == "cuda":
+        _build.load()
     _sync(device)
-    t0 = time.perf_counter()
-    block_L = (block_power_t(problem.A_t) if cfg.use_pallas
-               else block_power_t_plain(problem.A_t))
-    col_norms = bcd_mod.screen_norms(problem, cfg, None)
-    _sync(device)
-    setup_s = time.perf_counter() - t0
+    with span("cot.setup") as setup:
+        if cfg.use_pallas:
+            bcd_mod.prepare_sweep(problem.A_t)
+        block_L = (block_power_t(problem.A_t) if cfg.use_pallas
+                   else block_power_t_plain(problem.A_t))
+        col_norms = bcd_mod.screen_norms(problem, cfg, None)
+        _sync(device)
 
     state0 = bcd_mod.init_state(problem, x0, keep_mask=base_mask)
     _sync(device)
-    t1 = time.perf_counter()
-    final = bcd_mod.bcd(problem, block_L, state0, cfg, col_norms)
-    _sync(device)
-    return _result(final, method, cfg, time.perf_counter() - t1, setup_s,
-                   orig_n)
+    with span("cot.loop") as loop:
+        final = bcd_mod.bcd(problem, block_L, state0, cfg, col_norms)
+        _sync(device)
+    loop.set(iterations=final.k)
+    return _result(final, method, cfg, loop.seconds, setup.seconds, orig_n)
 
 
 def _maybe_certify(problem: Problem, res: Result, certify: bool) -> Result:

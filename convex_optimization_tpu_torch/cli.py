@@ -96,7 +96,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "verification path: the kernels take float32)")
     p.add_argument("--profile", metavar="DIR",
                    help="write a torch.profiler trace (CPU and CUDA "
-                        "activity) of the solve to DIR/trace.json")
+                        "activity) of the solve and its --polish to "
+                        "DIR/trace.json, with the port's cot. spans "
+                        "(utils/trace.py) around the operators they issue")
     p.add_argument("--plot", metavar="PNG",
                    help="write the error-vs-iteration convergence plot "
                         "(or the per-lambda path summary, or the CV curve) "
@@ -354,12 +356,20 @@ def main(argv=None) -> int:
         if device.type == "cuda":
             acts.append(ProfilerActivity.CUDA)
         prof = profile(activities=acts)
+    pr = None
     with prof:
         if mesh_n:
             res = _solve_mesh(problem, mesh_n, device, args.mesh_axis,
                               solve_kw)
         else:
             res = solve(problem, **solve_kw)
+        if args.polish and not (res.converged and res.rel_gap <= args.tol):
+            from convex_optimization_tpu_torch.solvers.polish import (
+                polish_support,
+            )
+
+            pr = polish_support(problem, res.x, tol=args.tol,
+                                A_host=A_host, b_host=b_host)
     if args.profile:
         os.makedirs(args.profile, exist_ok=True)
         trace = os.path.join(args.profile, "trace.json")
@@ -368,27 +378,15 @@ def main(argv=None) -> int:
 
     M.summary_line(name, res)
     # the port times the run it counts: timed_iterations = iterations
-    bw = M.effective_bandwidth(
-        problem.m, problem.n, res.iterations, res.wall_time_s,
-        passes_per_iter=M.passes_per_iter(res.method, args.gap_every),
-        itemsize=problem.A_t.element_size())
     out = {
         "name": name, "method": res.method, "m": problem.m, "n": problem.n,
         "iterations": res.iterations, "timed_iterations": res.iterations,
         "rel_gap": res.rel_gap,
         "converged": res.converged, "wall_s": res.wall_time_s,
         "iters_per_sec": res.iters_per_sec, "nnz": res.nnz,
-        "achieved_gb_s": bw["achieved_gb_s"],
-        "fraction_of_hbm_peak": bw["fraction_of_peak"],
     }
     x_out = res.x
-    if args.polish and not (res.converged and res.rel_gap <= args.tol):
-        from convex_optimization_tpu_torch.solvers.polish import (
-            polish_support,
-        )
-
-        pr = polish_support(problem, res.x, tol=args.tol,
-                            A_host=A_host, b_host=b_host)
+    if pr is not None:
         out.update({
             "polish_wall_s": pr.wall_time_s,
             "certified_rel_gap": pr.rel_gap,

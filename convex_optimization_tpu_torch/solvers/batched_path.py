@@ -88,6 +88,7 @@ from convex_optimization_tpu_torch.solvers.lambda_path import (
     path_grid,
 )
 from convex_optimization_tpu_torch.solvers.polish import polish_support
+from convex_optimization_tpu_torch.utils.trace import span
 
 
 class _BatchState(NamedTuple):
@@ -174,44 +175,49 @@ def _run_batched_loop(state: _BatchState, lam1s: torch.Tensor,
     start, until every point is converged or stalled, or max_iters.
     sweep_once(X, R) -> (X, R); gap_check(X, R) -> (R_exact, GapInfo over
     (L,), rho_aug, base_val).  ``agree`` maps the check's host-sync
-    tensor to rank 0's (sharded: every rank leaves at the same check)."""
+    tensor to rank 0's (sharded: every rank leaves at the same check).
+    Spans as in ``fista.fista``: ``cot.steps``, ``cot.check`` and in it
+    ``cot.sync``."""
     L = lam1s.shape[0]
     not_first = torch.arange(L, device=lam1s.device) > 0
     while state.k < cfg.max_iters:
         X, R = state.X, state.R
-        for _ in range(cfg.gap_every):
-            X, R = sweep_once(X, R)
-        R, info, rho_aug, base_val = gap_check(X, R)
-        k = state.k + cfg.gap_every
-        improved = info.rel_gap < state.best_rel
-        X_best = torch.where(improved[None, :, None], X, state.X_best)
-        R_best = torch.where(improved[:, None], R, state.R_best)
-        best_rel = torch.where(improved, info.rel_gap, state.best_rel)
-        best_gap = torch.where(improved, info.gap, state.best_gap)
-        best_primal = torch.where(improved, info.primal, state.best_primal)
-        iters_done = state.iters_done.masked_fill(improved, k)
-        since_best = (state.since_best + 1).masked_fill(improved, 0)
+        with span("cot.steps"):
+            for _ in range(cfg.gap_every):
+                X, R = sweep_once(X, R)
+        with span("cot.check"):
+            R, info, rho_aug, base_val = gap_check(X, R)
+            k = state.k + cfg.gap_every
+            improved = info.rel_gap < state.best_rel
+            X_best = torch.where(improved[None, :, None], X, state.X_best)
+            R_best = torch.where(improved[:, None], R, state.R_best)
+            best_rel = torch.where(improved, info.rel_gap, state.best_rel)
+            best_gap = torch.where(improved, info.gap, state.best_gap)
+            best_primal = torch.where(improved, info.primal, state.best_primal)
+            iters_done = state.iters_done.masked_fill(improved, k)
+            since_best = (state.since_best + 1).masked_fill(improved, 0)
 
-        # cascade warm start: point l adopts point l-1's CURRENT iterate
-        # when that iterate is primal-better at lam_l, evaluated from the
-        # parts already reduced: P_l(x_{l-1}) = 0.5 rho_aug_{l-1}
-        # + lam1_l base_val_{l-1}.  Lambdas descend, so the shift is
-        # l-1 -> l; GS prox descent is monotone from any start.
-        prev_aug = torch.cat([rho_aug[:1], rho_aug[:-1]])
-        prev_val = torch.cat([base_val[:1], base_val[:-1]])
-        primal_of_prev = 0.5 * prev_aug + lam1s * prev_val
-        adopt = ((primal_of_prev < info.primal) & not_first
-                 & (state.best_rel > cfg.tol))
-        X = torch.where(adopt[None, :, None],
-                        torch.cat([X[:, :1], X[:, :-1]], dim=1), X)
-        R = torch.where(adopt[:, None], torch.cat([R[:1], R[:-1]]), R)
+            # cascade warm start: point l adopts point l-1's CURRENT iterate
+            # when that iterate is primal-better at lam_l, evaluated from the
+            # parts already reduced: P_l(x_{l-1}) = 0.5 rho_aug_{l-1}
+            # + lam1_l base_val_{l-1}.  Lambdas descend, so the shift is
+            # l-1 -> l; GS prox descent is monotone from any start.
+            prev_aug = torch.cat([rho_aug[:1], rho_aug[:-1]])
+            prev_val = torch.cat([base_val[:1], base_val[:-1]])
+            primal_of_prev = 0.5 * prev_aug + lam1s * prev_val
+            adopt = ((primal_of_prev < info.primal) & not_first
+                     & (state.best_rel > cfg.tol))
+            X = torch.where(adopt[None, :, None],
+                            torch.cat([X[:, :1], X[:, :-1]], dim=1), X)
+            R = torch.where(adopt[:, None], torch.cat([R[:1], R[:-1]]), R)
 
-        # the check's one host sync
-        host = torch.stack([best_rel.double(), since_best.double(),
-                            info.primal.double(), info.rel_gap.double()])
-        if agree is not None:
-            host = agree(host)
-        rel, since, primal, rel_now = host.tolist()
+            # the check's one host sync
+            host = torch.stack([best_rel.double(), since_best.double(),
+                                info.primal.double(), info.rel_gap.double()])
+            if agree is not None:
+                host = agree(host)
+            with span("cot.sync"):
+                rel, since, primal, rel_now = host.tolist()
         state = _BatchState(X=X, R=R, X_best=X_best, R_best=R_best,
                             best_gap=best_gap, best_rel=best_rel,
                             best_primal=best_primal, iters_done=iters_done,
@@ -378,12 +384,15 @@ def _solve_batched(A_t: torch.Tensor, b: torch.Tensor, lam1s: torch.Tensor,
         return (rel.index_put((idx,), info.rel_gap),
                 gap.index_put((idx,), info.gap), R.index_put((idx,), R64))
 
-    state = _run_batched_loop(
-        state0, lam1s, cfg, sweep_once, gap_check,
-        None if g is None else (lambda t: broadcast0(t, g)))
+    with span("cot.loop") as loop:
+        state = _run_batched_loop(
+            state0, lam1s, cfg, sweep_once, gap_check,
+            None if g is None else (lambda t: broadcast0(t, g)))
+    loop.set(iterations=state.k - state0.k)
     if polish is None:
         return state
-    return _confirm(state, lam1s, cfg.tol, exact_gap, polish)
+    with span("cot.confirm"):
+        return _confirm(state, lam1s, cfg.tol, exact_gap, polish)
 
 
 def _batch_gate_reason(problem: Problem, picked: tuple[int, int],
@@ -583,16 +592,18 @@ def batched_lambda_path(
     if lambdas is None and mesh is None:
         b_eff = problem.b if rm is None else problem.b * rm
         # (rm A)^T (rm b) = A^T (rm b) for a 0/1 mask: no masked copy
-        lmax = float(lambda_max_t(problem.A_t, b_eff, problem.penalty))
-        lambdas = path_grid(lmax, path_len, lam_min_frac, problem.dtype,
-                            problem.device)
+        with span("cot.setup"):
+            lmax = float(lambda_max_t(problem.A_t, b_eff, problem.penalty))
+            lambdas = path_grid(lmax, path_len, lam_min_frac, problem.dtype,
+                                problem.device)
     L = path_len if lambdas is None else len(lambdas)
     chunk = chunk_size(L)
 
     prep = prepared
     if prep is None:
-        prep = prepare_batched_solver(problem, cfg, chunk=min(L, chunk),
-                                      mesh=mesh)
+        with span("cot.setup"):
+            prep = prepare_batched_solver(problem, cfg, chunk=min(L, chunk),
+                                          mesh=mesh)
     if prep.reason is not None:
         warnings.warn(
             f"bcd_batch gate failed ({prep.reason}); falling back to the "

@@ -45,6 +45,7 @@ from convex_optimization_tpu_torch.solvers.fista import (  # noqa: F401
     init_state,
     screen_norms,
 )
+from convex_optimization_tpu_torch.utils.trace import span
 
 
 def pick_block_size(n: int, target: int = 256, *,
@@ -103,7 +104,7 @@ def bcd(problem: Problem, block_L: torch.Tensor, state: SolveState,
     cfg.use_pallas: sweeps, refresh and witness go through K1 or K9
     (``pick_sweep``), K2, K3 (kernels for CUDA tensors, their plain
     versions for CPU tensors); otherwise the plain reference sweep and
-    matvecs."""
+    matvecs.  Spans as in ``fista.fista``."""
     n_blocks = block_L.shape[0]
     B = problem.n // n_blocks
     # lam1 as a Python float: read once here, not once per launch
@@ -122,10 +123,11 @@ def bcd(problem: Problem, block_L: torch.Tensor, state: SolveState,
         def refresh_and_check(s: SolveState) -> SolveState:
             # exact residual refresh once per check pins the drift of the
             # incrementally maintained r; K3 reuses the fresh r
-            r = ax_minus_b_t(A_t, s.x, problem.b)
-            z = neg_at_r_t(A_t, r, s.x, lam2)
-            return _check_and_record(problem, s._replace(r=r), z=z,
-                                     col_norms=col_norms)
+            with span("cot.check"):
+                r = ax_minus_b_t(A_t, s.x, problem.b)
+                z = neg_at_r_t(A_t, r, s.x, lam2)
+                return _check_and_record(problem, s._replace(r=r), z=z,
+                                         col_norms=col_norms)
     else:
         order = range(n_blocks)
 
@@ -135,14 +137,16 @@ def bcd(problem: Problem, block_L: torch.Tensor, state: SolveState,
                                  keep_mask=st.keep_mask)
 
         def refresh_and_check(s: SolveState) -> SolveState:
-            s = s._replace(r=problem.residual(s.x))
-            return _check_and_record(problem, s, col_norms=col_norms)
+            with span("cot.check"):
+                s = s._replace(r=problem.residual(s.x))
+                return _check_and_record(problem, s, col_norms=col_norms)
 
     state = refresh_and_check(state)
     while continue_loop(state, cfg):
-        for _ in range(cfg.gap_every):
-            x, r = sweep(state)
-            state = state._replace(x=x, r=r, k=state.k + 1)
+        with span("cot.steps"):
+            for _ in range(cfg.gap_every):
+                x, r = sweep(state)
+                state = state._replace(x=x, r=r, k=state.k + 1)
         state = refresh_and_check(state)
     return state
 

@@ -67,6 +67,7 @@ from convex_optimization_tpu_torch.solvers import fista as fista_mod
 from convex_optimization_tpu_torch.solvers import working_set as ws
 from convex_optimization_tpu_torch.solvers.common import SolverConfig
 from convex_optimization_tpu_torch.solvers.screening import compact_problem
+from convex_optimization_tpu_torch.utils.trace import span
 
 
 class PathResult(NamedTuple):
@@ -123,7 +124,17 @@ def lambda_path(
     else it warns and runs the FISTA path).  ``compact=True`` runs the
     compacting FISTA path whatever the method (but 'bcd_batch', which
     raises): ``kept`` holds the columns each point solved on.  With
-    ``cfg.screen_every > 0`` the sequential paths screen at every check."""
+    ``cfg.screen_every > 0`` the sequential paths screen at every check.
+    The call is the span ``cot.lambda_path`` (``utils/trace``)."""
+    points = path_len if lambdas is None else len(lambdas)
+    with span("cot.lambda_path", method=method, points=points):
+        return _lambda_path(problem, cfg, path_len, lam_min_frac, lambdas,
+                            compact, mesh, method, admm_setup)
+
+
+def _lambda_path(problem: Problem, cfg: SolverConfig, path_len: int,
+                 lam_min_frac: float, lambdas, compact: bool, mesh,
+                 method: str, admm_setup: str) -> PathResult:
     if method == "bcd_batch" and compact:
         raise ValueError(
             "method='bcd_batch' does not support compact=True (the batched "
@@ -156,9 +167,11 @@ def lambda_path(
         raise ValueError(f"unknown method {method!r}")
 
     if lambdas is None:
-        lmax = float(lambda_max_t(problem.A_t, problem.b, problem.penalty))
-        lambdas = path_grid(lmax, path_len, lam_min_frac, problem.dtype,
-                            problem.device)
+        with span("cot.setup"):
+            lmax = float(lambda_max_t(problem.A_t, problem.b,
+                                      problem.penalty))
+            lambdas = path_grid(lmax, path_len, lam_min_frac, problem.dtype,
+                                problem.device)
     lambdas = torch.as_tensor(lambdas, dtype=problem.dtype,
                               device=problem.device)
 
@@ -184,7 +197,7 @@ def lambda_path(
                 f"{ADMM_FENCE_DIM}: a float32 eigh stalls ~1e-2 rel gap "
                 "(measured by the JAX package) — falling back to the FISTA "
                 "path.  Pass admm_setup='host' for the float64 host eigh.",
-                stacklevel=2)
+                stacklevel=3)
             return _fista_path(problem, cfg, lambdas, "fista")
         return _admm_path(problem, cfg, lambdas, admm_setup)
     return _sequential_path(problem, cfg, lambdas, method)
@@ -209,19 +222,24 @@ def _fista_path(problem: Problem, cfg: SolverConfig, lambdas: torch.Tensor,
     """The JAX package's FISTA path (its ``lambda_path.py:303-317``): one
     L_total, each point warm-started at the previous point's last iterate
     with the residual from K2; returns the last iterates and their
-    gaps."""
-    L_total = float(spectral_norm_sq_t(problem.A_t)) + problem.lam2
-    col_norms = fista_mod.screen_norms(problem, cfg, None)
+    gaps.  Spans: ``cot.setup``, then per point ``cot.point`` around its
+    warm start and its ``cot.loop``."""
+    with span("cot.setup"):
+        L_total = float(spectral_norm_sq_t(problem.A_t)) + problem.lam2
+        col_norms = fista_mod.screen_norms(problem, cfg, None)
     xs, gaps, iters = [], [], []
     x_warm = None
-    for lam in lambdas.tolist():
-        p = problem.with_lam1(lam)
-        state = fista_mod.init_state(p, None)
-        if x_warm is not None:
-            r_w = ax_minus_b_t(p.A_t, x_warm, p.b)
-            state = state._replace(x=x_warm, r=r_w, x_prev=x_warm,
-                                   r_prev=r_w, x_best=x_warm)
-        state = fista_mod.fista(p, L_total, state, cfg, col_norms)
+    for i, lam in enumerate(lambdas.tolist()):
+        with span("cot.point", index=i):
+            p = problem.with_lam1(lam)
+            state = fista_mod.init_state(p, None)
+            if x_warm is not None:
+                r_w = ax_minus_b_t(p.A_t, x_warm, p.b)
+                state = state._replace(x=x_warm, r=r_w, x_prev=x_warm,
+                                       r_prev=r_w, x_best=x_warm)
+            with span("cot.loop") as loop:
+                state = fista_mod.fista(p, L_total, state, cfg, col_norms)
+            loop.set(iterations=state.k)
         x_warm = state.x
         xs.append(state.x)
         gaps.append(state.rel_gap)
@@ -247,11 +265,12 @@ def _sequential_path(problem: Problem, cfg: SolverConfig,
         bs = bcd_mod.pick_block_size(problem.n, cfg.block_size,
                                      multiple_of=multiple)
     problem = problem.with_block(bs)
-    if cfg.use_pallas:
-        bcd_mod.prepare_sweep(problem.A_t)
-    block_L = (block_power_t(problem.A_t) if cfg.use_pallas
-               else block_power_t_plain(problem.A_t))
-    col_norms = bcd_mod.screen_norms(problem, cfg, None)
+    with span("cot.setup"):
+        if cfg.use_pallas:
+            bcd_mod.prepare_sweep(problem.A_t)
+        block_L = (block_power_t(problem.A_t) if cfg.use_pallas
+                   else block_power_t_plain(problem.A_t))
+        col_norms = bcd_mod.screen_norms(problem, cfg, None)
 
     xs, gaps, iters = [], [], []
     x_warm = None
@@ -262,7 +281,9 @@ def _sequential_path(problem: Problem, cfg: SolverConfig,
             r_w = (ax_minus_b_t(p.A_t, x_warm, p.b) if cfg.use_pallas
                    else p.residual(x_warm))
             state = state._replace(x=x_warm, r=r_w, x_best=x_warm)
-        state = bcd_mod.bcd(p, block_L, state, cfg, col_norms)
+        with span("cot.loop") as loop:
+            state = bcd_mod.bcd(p, block_L, state, cfg, col_norms)
+        loop.set(iterations=state.k)
         x_warm = state.x_best
         xs.append(state.x_best)
         gaps.append(state.best_rel_gap)

@@ -28,8 +28,8 @@ package imports jax, which the port may not).
 
 from __future__ import annotations
 
+import contextlib
 import math
-import resource
 import sys
 import time
 from typing import NamedTuple
@@ -39,6 +39,7 @@ import torch
 
 from convex_optimization_tpu_torch.ops.matvec import neg_at_r_t, witness_gamma
 from convex_optimization_tpu_torch.utils import native
+from convex_optimization_tpu_torch.utils.trace import CpuSpan, span
 
 
 class PolishResult(NamedTuple):
@@ -48,8 +49,9 @@ class PolishResult(NamedTuple):
     primal: float
     kept: int              # columns in the final support set
     iterations: int        # f64 CD sweeps
-    wall_time_s: float
+    wall_time_s: float     # the span ``cot.polish`` (polish_support)
     gather_s: float = 0.0  # seconds spent gathering the support's columns
+                           # (the ``cot.polish.gather`` spans)
 
 
 class _NpPenalty:
@@ -435,32 +437,19 @@ def _cd64_group(As32, b, lam2, pen_s, xs, tol, max_sweeps, gap_every=2,
     return xs, keep_idx, sweeps, rel, gap, primal, r
 
 
-class _Ticker:
-    """Per-phase wall, this-thread CPU and minor-fault deltas on stderr
-    (verbose only): cpu ~= wall with many faults means a page-fault storm,
-    cpu << wall means the thread was descheduled.  ``totals`` sums the
-    wall seconds by label (the text before any "(")."""
-
-    def __init__(self, verbose: bool):
-        self.verbose = verbose
-        self.t = time.perf_counter()
-        self.prev = self._usage()
-        self.totals: dict = {}
-
-    @staticmethod
-    def _usage():
-        who = getattr(resource, "RUSAGE_THREAD", resource.RUSAGE_SELF)
-        return time.thread_time(), resource.getrusage(who).ru_minflt
-
-    def __call__(self, label: str) -> None:
-        now, usage = time.perf_counter(), self._usage()
-        key = label.split("(", 1)[0]
-        self.totals[key] = self.totals.get(key, 0.0) + now - self.t
-        if self.verbose:
-            print(f"  polish[{label}] +{now - self.t:.2f}s "
-                  f"(cpu +{usage[0] - self.prev[0]:.2f}s "
-                  f"minflt +{usage[1] - self.prev[1]})", file=sys.stderr)
-        self.t, self.prev = now, usage
+@contextlib.contextmanager
+def _stage(name: str, verbose: bool, **attrs):
+    """One stage of the polish: the span ``name`` with this thread's CPU
+    seconds and minor faults, printed on stderr when ``verbose`` (cpu ~=
+    wall with many faults means a page-fault storm, cpu << wall means the
+    thread was descheduled)."""
+    with CpuSpan(name, **attrs) as s:
+        yield s
+    if verbose:
+        what = ",".join(f"{k}={v}" for k, v in s.attrs.items())
+        label = name[len("cot.polish."):] + (f"({what})" if what else "")
+        print(f"  polish[{label}] +{s.seconds:.2f}s (cpu +{s.cpu_s:.2f}s "
+              f"minflt +{s.minflt})", file=sys.stderr)
 
 
 def _device_columns(problem, idx: np.ndarray) -> np.ndarray:
@@ -489,149 +478,162 @@ def polish_support(problem, x, *, tol: float = 1e-6,
     (module docstring).  ``A_host``/``b_host``: host copies of the data
     (A column-major f32), so columns are gathered without device
     transfers.  ``x`` may be a tensor or an array.  group_l2 goes to
-    ``_polish_support_group``."""
+    ``_polish_support_group``.  The call is the span ``cot.polish``, its
+    stages the spans ``cot.polish.setup`` and, in each expansion round
+    (``cot.polish.round``), ``.gather``, ``.cd64``, ``.witness`` and
+    ``.near``; ``verbose=True`` prints each stage's wall, CPU seconds and
+    minor faults."""
     kind = problem.penalty.kind
-    if kind == "group_l2":
-        return _polish_support_group(
-            problem, x, tol=tol, max_iters=max_iters, gap_every=gap_every,
-            A_host=A_host, b_host=b_host, max_expand=max_expand,
-            verbose=verbose)
-    if kind not in ("l1", "nonneg_l1"):
+    if kind not in ("l1", "nonneg_l1", "group_l2"):
         return polish_fast(problem, x, tol=tol, max_iters=max_iters,
                            gap_every=gap_every, A_host=A_host, b_host=b_host)
-    t0 = time.perf_counter()
-    tick = _Ticker(verbose)
+    run = (_polish_support_group if kind == "group_l2"
+           else _polish_support_sep)
+    with span("cot.polish") as whole:
+        pr, rounds = run(problem, x, tol=tol, max_iters=max_iters,
+                         gap_every=gap_every, A_host=A_host, b_host=b_host,
+                         max_expand=max_expand, verbose=verbose)
+    whole.set(kept=pr.kept, rounds=rounds)
+    return pr._replace(wall_time_s=whole.seconds)
+
+
+def _polish_support_sep(problem, x, *, tol, max_iters, gap_every, A_host,
+                        b_host, max_expand,
+                        verbose) -> tuple[PolishResult, int]:
+    """``polish_support`` for l1 and nonneg_l1: (the result with its wall
+    left to the caller, the rounds run)."""
+    kind = problem.penalty.kind
     m, n = problem.m, problem.n
     lam1 = float(problem.penalty.lam1)
     lam2 = float(problem.lam2)
-    pen = _NpPenalty(kind, lam1)
-    b = np.asarray(problem.b.cpu().numpy() if b_host is None else b_host,
-                   dtype=np.float64)
-    x_np = (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
-            else np.asarray(x)).astype(np.float64)
-    S = np.nonzero(x_np)[0]
-    if len(S) == 0:
-        S = np.array([0])
 
     def columns(idx):
         if A_host is None:
             return _device_columns(problem, idx), "device"
         return _gather_cols(A_host, idx, np.float32)
 
-    eps = float(np.finfo(np.float32).eps)
-    gamma = witness_gamma(m)
-    cn_safe = _col_norms64(problem) * (1.0 + 4 * eps) + 1e-12
-    zeros_n = torch.zeros((n,), dtype=torch.float32, device=problem.device)
-    tick("setup")
+    with _stage("cot.polish.setup", verbose):
+        b = np.asarray(problem.b.cpu().numpy() if b_host is None
+                       else b_host, dtype=np.float64)
+        x_np = (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+                else np.asarray(x)).astype(np.float64)
+        S = np.nonzero(x_np)[0]
+        if len(S) == 0:
+            S = np.array([0])
+        eps = float(np.finfo(np.float32).eps)
+        gamma = witness_gamma(m)
+        cn_safe = _col_norms64(problem) * (1.0 + 4 * eps) + 1e-12
+        zeros_n = torch.zeros((n,), dtype=torch.float32,
+                              device=problem.device)
 
     best = None
+    gather_s = 0.0
+    rounds = 0
     for _round in range(max_expand + 1):
-        As, path = columns(S)
-        tick(f"gather(|S|={len(S)},{path})")
-        S_full = S
-        pen_s = _NpPenalty(kind, lam1)
-        xs = x_np[S]
-        xs, sub_idx, k, _, _, _, r = _cd64(
-            As, b, lam2, pen_s, xs, tol * 0.5, max_iters)
-        S = S[sub_idx]
-        tick(f"cd64(sweeps={k})")
+        rounds += 1
+        with span("cot.polish.round", index=_round):
+            with _stage("cot.polish.gather", verbose,
+                        columns=len(S)) as st:
+                As, path = columns(S)
+                st.set(bytes=int(As.nbytes), source=path)
+            gather_s += st.seconds
+            S_full = S
+            pen_s = _NpPenalty(kind, lam1)
+            with _stage("cot.polish.cd64", verbose) as st:
+                xs = x_np[S]
+                xs, sub_idx, k, _, _, _, r = _cd64(
+                    As, b, lam2, pen_s, xs, tol * 0.5, max_iters)
+                st.set(sweeps=k)
+            S = S[sub_idx]
 
-        # full-problem certificate: f32 K3 witness + margin everywhere,
-        # exact f64 on the gathered set
-        r32 = torch.from_numpy(r.astype(np.float32)).to(problem.device)
-        z_f32 = neg_at_r_t(problem.A_t, r32, zeros_n, 0.0) \
-            .cpu().numpy().astype(np.float64)
-        tick("device-witness")
-        if lam2 != 0.0:
-            xfull32 = np.zeros(n, np.float32)
-            xfull32[S] = xs.astype(np.float32)
-            z_f32 -= lam2 * xfull32
-        margin = gamma * cn_safe * float(np.linalg.norm(r))
-        ub = (np.abs(z_f32) + margin if kind == "l1"
-              else np.maximum(z_f32 + margin, 0.0))
-        x_sf = np.zeros(len(S_full), np.float64)
-        x_sf[sub_idx] = xs
-        z_S = _gemv_t_mixed(As, r, lam2, x_sf)
-        ub[S_full] = np.abs(z_S) if kind == "l1" else np.maximum(z_S, 0.0)
+            # full-problem certificate: f32 K3 witness + margin
+            # everywhere, exact f64 on the gathered set
+            with _stage("cot.polish.witness", verbose):
+                r32 = torch.from_numpy(r.astype(np.float32)) \
+                    .to(problem.device)
+                z_f32 = neg_at_r_t(problem.A_t, r32, zeros_n, 0.0) \
+                    .cpu().numpy().astype(np.float64)
+                if lam2 != 0.0:
+                    xfull32 = np.zeros(n, np.float32)
+                    xfull32[S] = xs.astype(np.float32)
+                    z_f32 -= lam2 * xfull32
+                margin = gamma * cn_safe * float(np.linalg.norm(r))
+                ub = (np.abs(z_f32) + margin if kind == "l1"
+                      else np.maximum(z_f32 + margin, 0.0))
+                x_sf = np.zeros(len(S_full), np.float64)
+                x_sf[sub_idx] = xs
+                z_S = _gemv_t_mixed(As, r, lam2, x_sf)
+                ub[S_full] = (np.abs(z_S) if kind == "l1"
+                              else np.maximum(z_S, 0.0))
 
-        def certify(ub_now):
-            # ub_now upper-bounds the dual norm: the feasibility cap
-            # lam1 / max(ub) is conservative
-            feas = lam1 / max(float(ub_now.max()), 1e-300)
-            aug = float(r @ r + lam2 * (xs @ xs))
-            alpha = min(max(float(-(r @ b)) / max(aug, 1e-300), 0.0), feas)
-            primal = 0.5 * aug + float(pen_s.value(xs))
-            dual = alpha * float(-(r @ b)) - 0.5 * alpha * alpha * aug
-            gap = primal - dual
-            return gap / max(abs(primal), np.finfo(np.float64).tiny), gap, \
-                primal
+            def certify(ub_now):
+                # ub_now upper-bounds the dual norm: the feasibility cap
+                # lam1 / max(ub) is conservative
+                feas = lam1 / max(float(ub_now.max()), 1e-300)
+                aug = float(r @ r + lam2 * (xs @ xs))
+                alpha = min(max(float(-(r @ b)) / max(aug, 1e-300), 0.0),
+                            feas)
+                primal = 0.5 * aug + float(pen_s.value(xs))
+                dual = alpha * float(-(r @ b)) - 0.5 * alpha * alpha * aug
+                gap = primal - dual
+                return gap / max(abs(primal), np.finfo(np.float64).tiny), \
+                    gap, primal
 
-        rel, gap, primal = certify(ub)
-        if rel > tol:
-            # the margin may be all that pushes near-boundary columns over:
-            # replace their witnesses with exact f64 values
-            near = np.setdiff1d(
-                np.nonzero(ub >= lam1 * (1.0 - 1e-6))[0], S_full)
-            if len(near) > 8192:
-                near = near[np.argsort(-ub[near])[:8192]]
-            if len(near):
-                A_near, _ = columns(near)
-                z_near = _gemv_t_mixed(A_near, r)
-                tick(f"near-exact(|near|={len(near)})")
-                ub[near] = (np.abs(z_near) if kind == "l1"
-                            else np.maximum(z_near, 0.0))
-                rel, gap, primal = certify(ub)
-        if best is None or rel < best[3]:
-            best = (xs.copy(), S.copy(), k, rel, gap, primal)
-        if rel <= tol:
-            break
-        # expand with the violating / nearest-boundary columns
-        outside = np.setdiff1d(np.nonzero(ub >= lam1 * (1.0 - 1e-9))[0], S)
-        if len(outside) == 0:
-            cand = np.setdiff1d(np.argsort(-ub)[:2 * len(S)], S)
-            if len(cand) == 0:
+            rel, gap, primal = certify(ub)
+            if rel > tol:
+                # the margin may be all that pushes near-boundary columns
+                # over: replace their witnesses with exact f64 values
+                near = np.setdiff1d(
+                    np.nonzero(ub >= lam1 * (1.0 - 1e-6))[0], S_full)
+                if len(near) > 8192:
+                    near = near[np.argsort(-ub[near])[:8192]]
+                if len(near):
+                    with _stage("cot.polish.near", verbose,
+                                columns=len(near)):
+                        A_near, _ = columns(near)
+                        z_near = _gemv_t_mixed(A_near, r)
+                        ub[near] = (np.abs(z_near) if kind == "l1"
+                                    else np.maximum(z_near, 0.0))
+                        rel, gap, primal = certify(ub)
+            if best is None or rel < best[3]:
+                best = (xs.copy(), S.copy(), k, rel, gap, primal)
+            if rel <= tol:
                 break
-            outside = cand[np.argsort(-ub[cand])[:len(S)]]
-        x_np = np.zeros(n, np.float64)
-        x_np[S] = xs
-        S = np.sort(np.concatenate([S, outside]))
+            # expand with the violating / nearest-boundary columns
+            outside = np.setdiff1d(
+                np.nonzero(ub >= lam1 * (1.0 - 1e-9))[0], S)
+            if len(outside) == 0:
+                cand = np.setdiff1d(np.argsort(-ub)[:2 * len(S)], S)
+                if len(cand) == 0:
+                    break
+                outside = cand[np.argsort(-ub[cand])[:len(S)]]
+            x_np = np.zeros(n, np.float64)
+            x_np[S] = xs
+            S = np.sort(np.concatenate([S, outside]))
 
     xs, S, k, rel, gap, primal = best
     x_full = np.zeros(n, dtype=np.float64)
     x_full[S] = xs
     return PolishResult(
         x=x_full, rel_gap=float(rel), gap=float(gap), primal=float(primal),
-        kept=int(len(S)), iterations=k,
-        wall_time_s=time.perf_counter() - t0,
-        gather_s=tick.totals.get("gather", 0.0),
-    )
+        kept=int(len(S)), iterations=k, wall_time_s=0.0, gather_s=gather_s,
+    ), rounds
 
 
 def _polish_support_group(problem, x, *, tol, max_iters, gap_every,
                           A_host, b_host, max_expand,
-                          verbose) -> PolishResult:
+                          verbose) -> tuple[PolishResult, int]:
     """``polish_support`` for group_l2, with GROUPS as the unit: the f64
     solve runs on the support's groups (plus expansions) and the full
     certificate takes, per group outside them, the norm of the per-column
     bounds |z_j| + gamma ||A_j|| ||r|| >= ||z_g|| (exact f64 on the
-    gathered groups)."""
-    t0 = time.perf_counter()
-    tick = _Ticker(verbose)
+    gathered groups).  Returns as ``_polish_support_sep``."""
     m, n = problem.m, problem.n
     lam1 = float(problem.penalty.lam1)
     lam2 = float(problem.lam2)
     ngroups = problem.penalty.ngroups
     gsize = n // ngroups
     weights = problem.penalty.weights
-    w = (np.ones(ngroups) if weights is None
-         else weights.detach().cpu().numpy().astype(np.float64))
-    b = np.asarray(problem.b.cpu().numpy() if b_host is None else b_host,
-                   dtype=np.float64)
-    x_np = (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
-            else np.asarray(x)).astype(np.float64)
-    G = np.nonzero(x_np.reshape(ngroups, gsize).any(axis=1))[0]
-    if len(G) == 0:
-        G = np.array([0])
 
     def columns(idx):
         if A_host is None:
@@ -642,88 +644,113 @@ def _polish_support_group(problem, x, *, tol, max_iters, gap_every,
         return (groups[:, None] * gsize + np.arange(gsize)[None, :]) \
             .reshape(-1)
 
-    eps = float(np.finfo(np.float32).eps)
-    gamma = witness_gamma(m)
-    cn_safe = _col_norms64(problem) * (1.0 + 4 * eps) + 1e-12
-    zeros_n = torch.zeros((n,), dtype=torch.float32, device=problem.device)
-    tick("setup")
+    with _stage("cot.polish.setup", verbose):
+        w = (np.ones(ngroups) if weights is None
+             else weights.detach().cpu().numpy().astype(np.float64))
+        b = np.asarray(problem.b.cpu().numpy() if b_host is None
+                       else b_host, dtype=np.float64)
+        x_np = (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+                else np.asarray(x)).astype(np.float64)
+        G = np.nonzero(x_np.reshape(ngroups, gsize).any(axis=1))[0]
+        if len(G) == 0:
+            G = np.array([0])
+        eps = float(np.finfo(np.float32).eps)
+        gamma = witness_gamma(m)
+        cn_safe = _col_norms64(problem) * (1.0 + 4 * eps) + 1e-12
+        zeros_n = torch.zeros((n,), dtype=torch.float32,
+                              device=problem.device)
 
     best = None
+    gather_s = 0.0
+    rounds = 0
     for _round in range(max_expand + 1):
-        cols = group_cols(G)
-        As, path = columns(cols)
-        tick(f"gather(|G|={len(G)},{path})")
-        pen_s = _NpPenalty("group_l2", lam1, len(G), w[G])
-        xs, sub_idx, k, _, _, _, r = _cd64_group(
-            As, b, lam2, pen_s, x_np[cols], tol * 0.5, max_iters,
-            gap_every=gap_every)
-        tick(f"cd64_group(sweeps={k},kept={len(sub_idx)})")
+        rounds += 1
+        with span("cot.polish.round", index=_round):
+            cols = group_cols(G)
+            with _stage("cot.polish.gather", verbose,
+                        columns=len(cols)) as st:
+                As, path = columns(cols)
+                st.set(bytes=int(As.nbytes), source=path)
+            gather_s += st.seconds
+            pen_s = _NpPenalty("group_l2", lam1, len(G), w[G])
+            with _stage("cot.polish.cd64", verbose) as st:
+                xs, sub_idx, k, _, _, _, r = _cd64_group(
+                    As, b, lam2, pen_s, x_np[cols], tol * 0.5, max_iters,
+                    gap_every=gap_every)
+                st.set(sweeps=k, kept=len(sub_idx))
 
-        # full-problem certificate: f32 K3 witness + margin per column,
-        # aggregated per group; exact f64 on the gathered columns.  The
-        # group CD may have dropped zero groups: scatter through sub_idx
-        r32 = torch.from_numpy(r.astype(np.float32)).to(problem.device)
-        z_f32 = neg_at_r_t(problem.A_t, r32, zeros_n, 0.0) \
-            .cpu().numpy().astype(np.float64)
-        tick("device-witness")
-        x_cols = np.zeros(len(cols), np.float64)
-        x_cols[sub_idx] = xs
-        zbar = np.abs(z_f32) + gamma * cn_safe * float(np.linalg.norm(r))
-        zbar[cols] = np.abs(_gemv_t_mixed(As, r, lam2, x_cols))
-        ub_g = np.sqrt((zbar ** 2).reshape(ngroups, gsize).sum(axis=1))
+            # full-problem certificate: f32 K3 witness + margin per
+            # column, aggregated per group; exact f64 on the gathered
+            # columns.  The group CD may have dropped zero groups: scatter
+            # through sub_idx
+            with _stage("cot.polish.witness", verbose):
+                r32 = torch.from_numpy(r.astype(np.float32)) \
+                    .to(problem.device)
+                z_f32 = neg_at_r_t(problem.A_t, r32, zeros_n, 0.0) \
+                    .cpu().numpy().astype(np.float64)
+                x_cols = np.zeros(len(cols), np.float64)
+                x_cols[sub_idx] = xs
+                zbar = (np.abs(z_f32)
+                        + gamma * cn_safe * float(np.linalg.norm(r)))
+                zbar[cols] = np.abs(_gemv_t_mixed(As, r, lam2, x_cols))
+                ub_g = np.sqrt((zbar ** 2).reshape(ngroups, gsize)
+                               .sum(axis=1))
 
-        def certify(ub_now):
-            # ub_now bounds each group's ||z_g||: the feasibility cap
-            # lam1 / max(ub / w) is conservative
-            feas = lam1 / max(float(np.max(ub_now / w)), 1e-300)
-            aug = float(r @ r + lam2 * (x_cols @ x_cols))
-            alpha = min(max(float(-(r @ b)) / max(aug, 1e-300), 0.0), feas)
-            primal = 0.5 * aug + float(pen_s.value(x_cols))
-            dual = alpha * float(-(r @ b)) - 0.5 * alpha * alpha * aug
-            gap = primal - dual
-            return gap / max(abs(primal), np.finfo(np.float64).tiny), gap, \
-                primal
+            def certify(ub_now):
+                # ub_now bounds each group's ||z_g||: the feasibility cap
+                # lam1 / max(ub / w) is conservative
+                feas = lam1 / max(float(np.max(ub_now / w)), 1e-300)
+                aug = float(r @ r + lam2 * (x_cols @ x_cols))
+                alpha = min(max(float(-(r @ b)) / max(aug, 1e-300), 0.0),
+                            feas)
+                primal = 0.5 * aug + float(pen_s.value(x_cols))
+                dual = alpha * float(-(r @ b)) - 0.5 * alpha * alpha * aug
+                gap = primal - dual
+                return gap / max(abs(primal), np.finfo(np.float64).tiny), \
+                    gap, primal
 
-        rel, gap, primal = certify(ub_g)
-        if rel > tol:
-            # the margin may be all that pushes near-boundary groups over:
-            # replace their bounds with exact f64 values
-            near = np.setdiff1d(
-                np.nonzero(ub_g >= lam1 * w * (1.0 - 1e-6))[0], G)
-            if len(near) > 64:
-                near = near[np.argsort(-(ub_g / w)[near])[:64]]
-            if len(near):
-                A_near, _ = columns(group_cols(near))
-                z_near = np.abs(_gemv_t_mixed(A_near, r))
-                tick(f"near-exact(|near|={len(near)})")
-                ub_g[near] = np.sqrt(
-                    (z_near ** 2).reshape(len(near), gsize).sum(axis=1))
-                rel, gap, primal = certify(ub_g)
-        if best is None or rel < best[3]:
-            best = (x_cols.copy(), cols.copy(), k, rel, gap, primal)
-        if rel <= tol:
-            break
-        # expand with the violating / nearest-boundary groups
-        outside = np.setdiff1d(
-            np.nonzero(ub_g >= lam1 * w * (1.0 - 1e-9))[0], G)
-        if len(outside) == 0:
-            cand = np.setdiff1d(np.argsort(-(ub_g / w))[:2 * len(G)], G)
-            if len(cand) == 0:
+            rel, gap, primal = certify(ub_g)
+            if rel > tol:
+                # the margin may be all that pushes near-boundary groups
+                # over: replace their bounds with exact f64 values
+                near = np.setdiff1d(
+                    np.nonzero(ub_g >= lam1 * w * (1.0 - 1e-6))[0], G)
+                if len(near) > 64:
+                    near = near[np.argsort(-(ub_g / w)[near])[:64]]
+                if len(near):
+                    with _stage("cot.polish.near", verbose,
+                                columns=len(near) * gsize):
+                        A_near, _ = columns(group_cols(near))
+                        z_near = np.abs(_gemv_t_mixed(A_near, r))
+                        ub_g[near] = np.sqrt(
+                            (z_near ** 2).reshape(len(near), gsize)
+                            .sum(axis=1))
+                        rel, gap, primal = certify(ub_g)
+            if best is None or rel < best[3]:
+                best = (x_cols.copy(), cols.copy(), k, rel, gap, primal)
+            if rel <= tol:
                 break
-            outside = cand[:max(len(G) // 2, 1)]
-        x_np = np.zeros(n, np.float64)
-        x_np[cols] = x_cols
-        G = np.sort(np.concatenate([G, outside]))
+            # expand with the violating / nearest-boundary groups
+            outside = np.setdiff1d(
+                np.nonzero(ub_g >= lam1 * w * (1.0 - 1e-9))[0], G)
+            if len(outside) == 0:
+                cand = np.setdiff1d(np.argsort(-(ub_g / w))[:2 * len(G)],
+                                    G)
+                if len(cand) == 0:
+                    break
+                outside = cand[:max(len(G) // 2, 1)]
+            x_np = np.zeros(n, np.float64)
+            x_np[cols] = x_cols
+            G = np.sort(np.concatenate([G, outside]))
 
     x_cols, cols, k, rel, gap, primal = best
     x_full = np.zeros(n, dtype=np.float64)
     x_full[cols] = x_cols
     return PolishResult(
         x=x_full, rel_gap=float(rel), gap=float(gap), primal=float(primal),
-        kept=int(len(cols)), iterations=k,
-        wall_time_s=time.perf_counter() - t0,
-        gather_s=tick.totals.get("gather", 0.0),
-    )
+        kept=int(len(cols)), iterations=k, wall_time_s=0.0,
+        gather_s=gather_s,
+    ), rounds
 
 
 def _host_inputs(problem, x, b_host):

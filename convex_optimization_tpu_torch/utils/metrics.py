@@ -1,13 +1,12 @@
-"""Structured metrics: per-check records, JSONL, the bandwidth meter.
+"""Structured metrics: per-check records, JSONL, a wall timer.
 
 Counterpart of ``convex_optimization_tpu/utils/metrics.py``: the same
 record schema and JSONL lines (a ``meta`` line, then one ``check`` line
-per convergence check), so the two packages' files read alike.  What
-differs is the yardstick: the meter scores the loop against the H100's
-HBM (3.35 TB/s, the H100 SXM's data sheet), and counts the port's passes over A: a BCD
-sweep reads A once (K1) and a check every ``gap_every`` sweeps reads it
-twice more (K2's refresh, K3's witness), so 1 + 2/gap_every per sweep
-(``PERF.md`` section 2); a FISTA step reads it twice (K2, K3).
+per convergence check), so the two packages' files read alike.  The JAX
+package's bandwidth meter (GB/s from the host's wall over an assumed
+count of passes over A) has no counterpart: the port's spans
+(``utils/trace``) time its layers, and the benchmark's rooflines
+(``benchmark/roofline/``) score its kernels from a device trace.
 """
 
 from __future__ import annotations
@@ -19,19 +18,6 @@ from dataclasses import asdict, dataclass
 from typing import IO, Iterable, Optional
 
 from convex_optimization_tpu_torch.utils.device import sync
-
-#: the H100 SXM's peak HBM bandwidth, bytes/s
-H100_HBM_PEAK_BYTES_S = 3.35e12
-
-
-def passes_per_iter(method: str, gap_every: int) -> float:
-    """Passes over A per sweep or step of ``method`` in the port: BCD 1 +
-    2/gap_every (K1, and K2 + K3 at each check), FISTA/ISTA 2 (K2 + K3
-    every step)."""
-    if "bcd" in method:
-        return 1.0 + 2.0 / max(gap_every, 1)
-    return 2.0
-
 
 @dataclass
 class SweepRecord:
@@ -75,20 +61,6 @@ def write_jsonl(records: Iterable[SweepRecord], fp: IO[str],
     for r in records:
         fp.write(json.dumps({"record": "check", **asdict(r)}) + "\n")
     fp.flush()
-
-
-def effective_bandwidth(m: int, n: int, iterations: int, wall_time_s: float,
-                        *, passes_per_iter: float = 2.0,
-                        itemsize: int = 4) -> dict:
-    """Achieved bytes/s streaming A, and the fraction of the H100's HBM
-    peak; ``passes_per_iter`` from ``passes_per_iter(method, gap_every)``."""
-    bytes_moved = passes_per_iter * m * n * itemsize * iterations
-    bps = bytes_moved / wall_time_s if wall_time_s > 0 else float("inf")
-    return {
-        "achieved_gb_s": bps / 1e9,
-        "hbm_peak_gb_s": H100_HBM_PEAK_BYTES_S / 1e9,
-        "fraction_of_peak": bps / H100_HBM_PEAK_BYTES_S,
-    }
 
 
 class WallTimer:

@@ -9,8 +9,7 @@ JAX package's (``core/objective.py``, ``utils/checkpoint.py``,
     uninterrupted solve's x (2e-4) in fewer iterations, as
     ``tests/test_utils_cli.py`` holds the JAX package;
   * ``records_from_history`` / ``write_jsonl`` write the JAX package's
-    lines for the same history; ``effective_bandwidth`` counts the port's
-    passes at the H100's 3.35 TB/s;
+    lines for the same history;
   * the plots are written, and each entry point returns False without
     matplotlib.
 """
@@ -120,19 +119,6 @@ def test_records_and_jsonl_have_the_jax_format():
     assert lines[0] == {"record": "meta", "name": "t"}
     assert len(lines) == len(recs) + 1
     assert recs[-1].t_wall_s == pytest.approx(res.wall_time_s)
-
-
-def test_effective_bandwidth_counts_the_port_passes():
-    bw = M.effective_bandwidth(1000, 1000, iterations=100, wall_time_s=1.0)
-    assert np.isclose(bw["achieved_gb_s"], 2 * 4 * 1e6 * 100 / 1e9)
-    assert bw["hbm_peak_gb_s"] == 3350.0
-    assert np.isclose(bw["fraction_of_peak"], 0.8 / 3350.0)
-    assert M.passes_per_iter("bcd_pallas", 10) == 1.2
-    assert M.passes_per_iter("sharded_bcd", 5) == 1.4
-    assert M.passes_per_iter("fista", 10) == 2.0
-    bw = M.effective_bandwidth(1000, 1000, 100, 1.0,
-                               passes_per_iter=M.passes_per_iter("bcd", 10))
-    assert np.isclose(bw["achieved_gb_s"], 1.2 * 4e6 * 100 / 1e9)
 
 
 def test_wall_timer_and_summary_line():
