@@ -1,8 +1,8 @@
 // The copy pipeline and the grid barrier shared by the persistent sweep
 // kernels (K1 and K8 csrc/sweep.cu, K5 csrc/sweep_batch.cu, K9
 // csrc/sweep_tiled.cu): cp.async of 16 or 4 bytes, bulk copies (1-D TMA)
-// on mbarriers, an integer arrival-counter grid barrier, and W-float
-// shared-memory accesses.
+// on mbarriers, an integer arrival-counter grid barrier, epoch-tagged
+// words and thread block clusters (K5), and W-float shared-memory accesses.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -107,6 +107,92 @@ __device__ __forceinline__ void counter_barrier(unsigned* count,
     } while (v < target);
   }
   __syncthreads();
+}
+
+// Epoch-tagged words in global memory: a float and the epoch it belongs to
+// in one 8-byte word, stored and loaded whole (relaxed, at gpu scope), so a
+// reader that sees the epoch it waits for sees the value with it: no flag,
+// no fence, one trip through L2.
+__device__ __forceinline__ void ll_store(unsigned long long* a, float v,
+                                         unsigned epoch) {
+  const unsigned long long w =
+      ((unsigned long long)epoch << 32) | __float_as_uint(v);
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;\n" ::"l"(a), "l"(w)
+               : "memory");
+}
+
+__device__ __forceinline__ unsigned long long ll_load(
+    const unsigned long long* a) {
+  unsigned long long w;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];\n"
+               : "=l"(w)
+               : "l"(a)
+               : "memory");
+  return w;
+}
+
+// Thread block clusters (sm_90): a barrier over every thread of the
+// cluster's CTAs (arrival releases, the wait acquires); this CTA's rank in
+// its cluster and its cluster's index; the shared::cluster address of
+// `p`'s counterpart in the CTA of rank `rank`; asynchronous stores of 4 or
+// 16 bytes into another CTA's shared memory that report their bytes to an
+// mbarrier there; and a wait on a local mbarrier that acquires what such
+// stores released.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ unsigned cluster_id() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ unsigned peer_smem(const void* p, unsigned rank) {
+  unsigned a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(a)
+               : "r"(smem_u32(p)), "r"(rank));
+  return a;
+}
+
+__device__ __forceinline__ void st_async(unsigned a, float v, unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.f32 [%0], %1, "
+      "[%2];\n" ::"r"(a),
+      "f"(v), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void st_async4(unsigned a, const float* v,
+                                          unsigned bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(a),
+      "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3]), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait_cluster(unsigned long long* bar,
+                                                  unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
 // W consecutive floats in shared memory (16-byte aligned when W = 4):

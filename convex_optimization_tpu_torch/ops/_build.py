@@ -130,12 +130,13 @@ def _declare(lib) -> None:
                                      _I, _VP]
     lib.cot_block_power_gram_t.argtypes = [_VP, _VP, _VP, _I, _I, _I, _I,
                                            _Fl, _VP]
+    lib.cot_batch_sweep_clusters.argtypes = [_I, ctypes.POINTER(_I)]
     lib.cot_batch_sweep_check.argtypes = [_I, _I, _I, _I, _I, _I, _I, _I,
                                           _I, _I, ctypes.POINTER(_I)]
     lib.cot_batch_sweep_t.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _VP,
-                                      _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
-                                      _I, _I, _Fl, _I, _I, _I, _I, _I, _I,
-                                      _I, _I, _I, _I, _VP]
+                                      _VP, _VP, _VP, _VP, _I, _I, _I, _I,
+                                      _I, _Fl, _I, _I, _I, _I, _I, _I, _I,
+                                      _I, _I, _I, _VP]
     lib.cot_ax_minus_b_batch_t.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I,
                                            _I, _I, _I, _VP]
     lib.cot_matvec_batch_plan.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
@@ -152,7 +153,8 @@ def _declare(lib) -> None:
                lib.cot_matvec_occupancy, lib.cot_ax_minus_b_t,
                lib.cot_neg_at_r_t, lib.cot_block_power_t,
                lib.cot_block_gram_t, lib.cot_block_power_gram_t,
-               lib.cot_batch_sweep_check, lib.cot_batch_sweep_t,
+               lib.cot_batch_sweep_clusters, lib.cot_batch_sweep_check,
+               lib.cot_batch_sweep_t,
                lib.cot_matvec_batch_plan, lib.cot_ax_minus_b_batch_t,
                lib.cot_neg_at_r_batch_t):
         fn.restype = _I

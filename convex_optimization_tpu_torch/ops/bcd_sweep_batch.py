@@ -60,9 +60,16 @@ K5_PHASE1_THREADS = 256
 #: at config 4) and loses to 16-byte cp.async on short ones (160 bytes at
 #: config 2; PERF.md)
 K5_BULK_MIN_ROWS = 128
+#: the cluster sizes K5 launches with, the first that fits preferred: the
+#: largest cluster sums most partials in shared memory and leaves the
+#: fewest clusters to exchange through global memory (PERF.md)
+K5_CLUSTER_SIZES = (8, 4, 2, 1)
 #: (device index, B, m, L, gsize) -> K5's BatchSweepPlan, None when no fit
 #: (gsize 0 outside group_l2: the group prox needs more shared memory)
 _k5_plan_cache: dict = {}
+#: device index -> {cluster size: the most such clusters of K5 the card
+#: holds at once at one CTA per SM}
+_k5_cluster_cache: dict = {}
 #: (device index, n, m, L) -> K6/K7 launch plan (matvec_batch_plan)
 _plan_cache: dict = {}
 
@@ -145,14 +152,14 @@ def batch_sweep_t_plain(A_t: torch.Tensor, X: torch.Tensor, R: torch.Tensor,
 
 @dataclasses.dataclass(frozen=True)
 class BatchSweepPlan:
-    """K5's launch at one (B, m, L, gsize): ``grid`` CTAs of ``rows`` rows
-    each; tile rows of stride ``ld`` floats in shared memory; ``vec``: the
-    float4 instance (m % 4 == 0, rows % 4 == 0, ld % 8 == 4), whose copies
-    are 16 bytes when A_t is 16-byte aligned; ``prefetch``: the b-rows of
-    tile j + 1 in flight across block j's barriers (B: a double buffer);
-    ``s1``, ``s2``: the segments phase 1 and phase 2 are split into;
-    ``rw``: the warps that split each reduced pair's G partials (all 16, or
-    1 with no shared scratch); ``bulk``: load the tile with the bulk-copy
+    """K5's launch at one (B, m, L, gsize): ``grid`` = ``cs`` * ``nc`` CTAs
+    in ``nc`` clusters of ``cs``, the first ceil(m / rows) with ``rows``
+    rows each (the rest none); tile rows of stride ``ld`` floats in shared
+    memory; ``vec``: the float4 instance (m % 4 == 0, rows % 4 == 0, ld % 8
+    == 4), whose copies are 16 bytes when A_t is 16-byte aligned;
+    ``prefetch``: the b-rows of tile j + 1 in flight across block j's
+    exchange (B: a double buffer); ``s1``, ``s2``: the segments phase 1 and
+    phase 2 are split into; ``bulk``: load the tile with the bulk-copy
     engine (when A_t is aligned) rather than 16-byte cp.async."""
     B: int
     L: int
@@ -164,95 +171,133 @@ class BatchSweepPlan:
     prefetch: int
     s1: int
     s2: int
-    rw: int
+    cs: int
+    nc: int
     bulk: bool = False
+
+    @property
+    def slice_len(self) -> int:
+        """The (b, l) pairs each rank of a cluster owns: B / cs b's, every
+        l."""
+        return self.B // self.cs * self.L
 
     @property
     def smem_bytes(self) -> int:
         """Shared memory of the layout (csrc/sweep_batch.cu ``layout``)."""
-        B, L, rows, vec = self.B, self.L, self.rows, self.vec
+        B, L, rows, vec, cs = self.B, self.L, self.rows, self.vec, self.cs
         LP = -(-L // 4) * 4
         red = max((self.s1 - 1) * 2 * LP * -(-B // 2),
                   (self.s2 - 1) * LP * rows)
         floats = ((B + self.prefetch) * self.ld + up4(L * rows, vec)
                   + up4(rows, vec) + up4(B * (LP if vec else L), vec)
                   + up4(red, vec))
-        if self.rw > 1:
-            floats += 32 * self.rw
+        if cs > 1:                        # every rank's partials, 16-byte rows
+            floats = up4(floats, True) + B * LP
         if self.gsize:
             floats += L * B + L * (B // self.gsize)
-        if vec:                           # two mbarriers for the bulk copies
-            floats = up4(floats, vec) + 4
+        if vec or cs > 1:                 # four mbarriers
+            floats = up4(floats, True) + 8
         return 4 * floats
 
 
-def batch_sweep_tiling(B: int, m: int, L: int, gsize: int, sms: int,
+def batch_sweep_tiling(B: int, m: int, L: int, gsize: int,
+                       clusters: dict[int, int],
                        smem_limit: int = K5_MAX_SMEM_BYTES
                        ) -> BatchSweepPlan | None:
-    """The pure part of ``batch_plan``: K5's plan on a card of ``sms`` SMs
-    with ``smem_limit`` bytes of shared memory per CTA, or None when even
-    the plainest layout does not fit.
+    """The pure part of ``batch_plan``: K5's plan on a card that holds at
+    once ``clusters[cs]`` clusters of cs CTAs at one CTA per SM, with
+    ``smem_limit`` bytes of shared memory per CTA, or None when even the
+    plainest layout does not fit.
 
-    One CTA per SM (at most m), rows = ceil(m / grid); the float4 instance
-    (when m % 4 == 0) rounds rows up to 4 and pads ld to 4 mod 8, else ld
-    is odd (both keep phase 1's tile reads conflict-free).  Phase 1 (units
+    Layouts from the best down: the float4 instance (when m % 4 == 0), then
+    the scalar one; the split phases, then unsplit ones.  For each, the
+    cluster sizes of K5_CLUSTER_SIZES that divide B (each rank of a cluster
+    owns B / cs of the b's), in order: the card's clusters of cs
+    hold G0 = min(cs clusters[cs], m) CTAs, rows = ceil(m / G0) (the float4
+    instance rounds rows up to 4 and pads ld to 4 mod 8, else ld is odd:
+    both keep phase 1's tile reads conflict-free), and nc = ceil(ceil(m /
+    rows) / cs) clusters; the first that fits is the plan.  Phase 1 (units
     of two tile rows) splits into s1 segments, about K5_PHASE1_THREADS
     threads in all; phase 2 (units of an l-quad and a row unit) into s2, at
-    most K5_THREADS threads; both at most K5_MAX_SEGMENTS, or 1 where their
-    scratch does not fit; the reduction's 16 warps share a (16, 32) scratch.
-    The spare shared memory then holds ``prefetch`` b-rows of the next
-    tile, up to B.  The last resort (scalar, unsplit, one reducing warp, no
-    prefetch) is the layout of the first K5 design, so every shape that
-    design took still fits."""
-    G0 = min(sms, m)
+    most K5_THREADS threads; both at most K5_MAX_SEGMENTS.  The spare
+    shared memory then holds ``prefetch`` b-rows of the next tile, up to
+    B.  The last resort (scalar, unsplit, no prefetch, clusters of one)
+    is the layout of the first K5 design, so every shape that design took
+    still fits wherever the card holds one CTA on each SM."""
     LP = -(-L // 4) * 4
     for vec in ((True, False) if m % 4 == 0 else (False,)):
-        rows = -(-m // G0)
-        if vec:
-            rows = -(-rows // 4) * 4
-            ld = rows if rows % 8 == 4 else rows + 4
-        else:
-            ld = rows | 1
-        grid = -(-m // rows)
-        units2 = LP // 4 * (rows // 4 if vec else rows)
-        s1 = max(1, min(K5_MAX_SEGMENTS, K5_PHASE1_THREADS // -(-B // 2)))
-        s2 = max(1, min(K5_MAX_SEGMENTS, K5_THREADS // units2, B))
-        for seg in ((s1, s2, K5_THREADS // 32), (1, 1, 1)):
-            plan = BatchSweepPlan(B, L, gsize, grid, rows, ld, vec, 0, *seg)
-            spare = smem_limit - plan.smem_bytes
-            if spare >= 0:
-                return dataclasses.replace(
-                    plan, prefetch=min(B, spare // (4 * ld)),
-                    bulk=vec and rows >= K5_BULK_MIN_ROWS)
+        for split in (True, False):
+            for cs in K5_CLUSTER_SIZES:
+                if clusters.get(cs, 0) < 1 or B % cs:
+                    continue
+                rows = -(-m // min(cs * clusters[cs], m))
+                if vec:
+                    rows = -(-rows // 4) * 4
+                    ld = rows if rows % 8 == 4 else rows + 4
+                else:
+                    ld = rows | 1
+                with_rows = -(-m // rows)      # CTAs that own rows
+                nc = -(-with_rows // cs)
+                s1 = s2 = 1
+                if split:
+                    units2 = LP // 4 * (rows // 4 if vec else rows)
+                    s1 = max(1, min(K5_MAX_SEGMENTS,
+                                    K5_PHASE1_THREADS // -(-B // 2)))
+                    s2 = max(1, min(K5_MAX_SEGMENTS, K5_THREADS // units2,
+                                    B))
+                plan = BatchSweepPlan(B, L, gsize, cs * nc, rows, ld, vec,
+                                      0, s1, s2, cs, nc)
+                spare = smem_limit - plan.smem_bytes
+                if spare >= 0:
+                    return dataclasses.replace(
+                        plan, prefetch=min(B, spare // (4 * ld)),
+                        bulk=vec and rows >= K5_BULK_MIN_ROWS)
     return None
+
+
+def k5_clusters(device: torch.device) -> dict[int, int]:
+    """{cs: the most clusters of cs K5 CTAs that ``device`` holds at once
+    at one CTA per SM} for every cs of K5_CLUSTER_SIZES, from the C side
+    (``cot_batch_sweep_clusters``, the card's cluster occupancy)."""
+    if device.index not in _k5_cluster_cache:
+        out = (ctypes.c_int * 1)()
+        table = {}
+        with torch.cuda.device(device):
+            for cs in K5_CLUSTER_SIZES:
+                _build.check(_build.load().cot_batch_sweep_clusters(cs, out),
+                             "cot_batch_sweep_clusters")
+                table[cs] = out[0]
+        _k5_cluster_cache[device.index] = table
+    return _k5_cluster_cache[device.index]
 
 
 def batch_plan(device: torch.device, B: int, m: int, L: int,
                gsize: int = 0) -> BatchSweepPlan | None:
     """K5's plan at (B, m, L, gsize) on ``device`` (None when no fit): the
-    SM count from torch, the tiling from ``batch_sweep_tiling``, checked on
-    the C side (``cot_batch_sweep_check``: the same shared-memory bytes,
-    and one CTA per SM co-resident for the cooperative launch)."""
+    tiling from ``batch_sweep_tiling`` on the card's cluster occupancy
+    (``k5_clusters``), checked on the C side (``cot_batch_sweep_check``:
+    the same shared-memory bytes, and all ``nc`` clusters of the layout
+    resident at once, as the cooperative launch needs; raises if not)."""
     key = (device.index, B, m, L, gsize)
     if key not in _k5_plan_cache:
         props = torch.cuda.get_device_properties(device)
         limit = min(K5_MAX_SMEM_BYTES,
                     getattr(props, "shared_memory_per_block_optin",
                             K5_MAX_SMEM_BYTES))
-        plan = batch_sweep_tiling(B, m, L, gsize,
-                                  props.multi_processor_count, limit)
+        plan = batch_sweep_tiling(B, m, L, gsize, k5_clusters(device), limit)
         if plan is not None:
             out = (ctypes.c_int * 2)()
             with torch.cuda.device(device):
                 _build.check(_build.load().cot_batch_sweep_check(
                     B, L, gsize, plan.rows, plan.ld, plan.prefetch, plan.s1,
-                    plan.s2, plan.rw, int(plan.vec), out),
+                    plan.s2, plan.cs, int(plan.vec), out),
                     "cot_batch_sweep_check")
             if out[0] != plan.smem_bytes:
                 raise RuntimeError(f"K5 layout: C side {out[0]} bytes, "
                                    f"plan {plan.smem_bytes}")
-            if out[1] < 1:
-                raise RuntimeError(f"K5 plan {plan} fits no SM")
+            if out[1] < plan.nc:
+                raise RuntimeError(f"K5 plan {plan}: the card holds "
+                                   f"{out[1]} of its {plan.nc} clusters")
         _k5_plan_cache[key] = plan
     return _k5_plan_cache[key]
 
@@ -319,19 +364,19 @@ def batch_sweep_t(A_t: torch.Tensor, X: torch.Tensor, R: torch.Tensor,
     copy = (2 if plan.bulk else 1) if plan.vec and _aligned(A_t) else 0
     X_out = torch.empty_like(X)
     R_out = torch.empty_like(R)
-    partials = torch.empty(((plan.grid + 1) * L * B,), dtype=torch.float32,
-                           device=dev)
-    bar = torch.zeros((1,), dtype=torch.int32, device=dev)  # grid barrier
+    # the exchange between the clusters: two copies of each cluster's sums,
+    # each tagged with its block (zero: no block yet)
+    xch = torch.zeros((2 * plan.nc * L * B,), dtype=torch.int64, device=dev)
     err = _build.load().cot_batch_sweep_t(
         A_t.data_ptr(), X.data_ptr(), R.data_ptr(), steps.data_ptr(),
         lam1s.data_ptr(),
         None if keep_mask is None else keep_mask.data_ptr(),
         None if row_mask is None else row_mask.data_ptr(),
         None if w is None else w.data_ptr(),
-        X_out.data_ptr(), R_out.data_ptr(), partials.data_ptr(),
-        bar.data_ptr(), nb, B, m, L, plan.gsize, float(lam2),
-        KIND_CODE[penalty.kind], plan.grid, plan.rows, plan.ld,
-        plan.prefetch, plan.s1, plan.s2, plan.rw, int(plan.vec), copy,
+        X_out.data_ptr(), R_out.data_ptr(), xch.data_ptr(), nb, B, m, L,
+        plan.gsize, float(lam2), KIND_CODE[penalty.kind], plan.grid,
+        plan.cs, plan.rows, plan.ld,
+        plan.prefetch, plan.s1, plan.s2, int(plan.vec), copy,
         _build.stream_ptr(dev))
     _build.check(err, "batch_sweep_t")
     _build.launches["batch_sweep_t"] += 1

@@ -17,8 +17,12 @@ polish module's note), and its monitor misreads a gap near that floor: a
 128 x 512 group instance at tol 1e-6 reads 0 where the f64 gap is 1.3e-6.
 A point whose claim fails in f64 is finished by the f64 support polish
 (``solvers/polish.py``) and read in f64 again; the gap returned is that
-reading, and its x the polished one rounded to f32.  Where every claim
-holds, the path is the JAX package's, with f64 gaps returned.  CV's fold
+reading, and its x the polished one rounded to f32.  That rounding alone
+moves the gap: on that instance polished points certified at 4e-8 to
+2e-7 read 8e-8 to 1.0e-6 once rounded (on an H100), so a reading still
+above tol is polished again from the rounded x, up to POLISH_TRIES
+polishes, and the best reading is kept.  Where every claim holds, the
+path is the JAX package's, with f64 gaps returned.  CV's fold
 paths (``certify=False``) keep the JAX rule: only their x reach the
 held-out error, and their gaps are not returned.
 
@@ -68,7 +72,9 @@ from convex_optimization_tpu_torch.ops.bcd_sweep import (
 )
 from convex_optimization_tpu_torch.ops.bcd_sweep_batch import (
     MAX_BATCH,
+    BatchSweepPlan,
     ax_minus_b_batch_t,
+    batch_plan,
     batch_sweep_t,
     eligible_batch,
     neg_at_r_batch_t,
@@ -89,6 +95,11 @@ from convex_optimization_tpu_torch.solvers.lambda_path import (
 )
 from convex_optimization_tpu_torch.solvers.polish import polish_support
 from convex_optimization_tpu_torch.utils.trace import span
+
+
+#: polishes of a claim that fails in f64, each from the last one's
+#: f32-rounded x (module docstring)
+POLISH_TRIES = 3
 
 
 class _BatchState(NamedTuple):
@@ -234,19 +245,23 @@ def _run_batched_loop(state: _BatchState, lam1s: torch.Tensor,
 def _confirm(state: _BatchState, lam1s: torch.Tensor, tol: float,
              exact_gap: Callable, polish: Callable) -> _BatchState:
     """Read in f64 every point whose best f32 reading is at or under tol;
-    polish each one that fails there and read it in f64 again.  The f64
-    readings become the points' gaps (module docstring)."""
+    polish each one that fails there and read it in f64 again, up to
+    POLISH_TRIES times, each from the last polish's output, keeping the
+    best reading.  The f64 readings become the points' gaps (module
+    docstring)."""
     claim = state.best_rel <= tol
     if not bool(claim.any()):
         return state
     rel, gap, R = exact_gap(state.X_best, claim)
     failed = claim & (rel > tol)
-    X_best = state.X_best
-    if bool(failed.any()):
-        nb, _, B = X_best.shape
-        X_pol = X_best.clone()
+    X_best = X_pol = state.X_best
+    nb, _, B = X_best.shape
+    for _ in range(POLISH_TRIES):
+        if not bool(failed.any()):
+            break
+        X_pol = X_pol.clone()
         for l in failed.nonzero().squeeze(1).tolist():
-            x = polish(float(lam1s[l]), X_best[:, l].reshape(nb * B))
+            x = polish(float(lam1s[l]), X_pol[:, l].reshape(nb * B))
             X_pol[:, l] = x.reshape(nb, B)
         rel2, gap2, R2 = exact_gap(X_pol, failed)
         keep = failed & (rel2 < rel)
@@ -254,6 +269,7 @@ def _confirm(state: _BatchState, lam1s: torch.Tensor, tol: float,
         rel = torch.where(keep, rel2, rel)
         gap = torch.where(keep, gap2, gap)
         R = torch.where(keep[:, None], R2, R)
+        failed = failed & (rel > tol)
     dt = state.best_rel.dtype
     return state._replace(
         X_best=X_best,
@@ -395,29 +411,35 @@ def _solve_batched(A_t: torch.Tensor, b: torch.Tensor, lam1s: torch.Tensor,
         return _confirm(state, lam1s, cfg.tol, exact_gap, polish)
 
 
-def _batch_gate_reason(problem: Problem, picked: tuple[int, int],
-                       chunk: int, gsize: int, g=None) -> str | None:
-    """None when the batched kernels can run; else a readable reason.
-    ``gsize``: the group width of a group_l2 problem, 0 otherwise (K5's
-    group prox needs more shared memory).  With ``g`` (a ColumnGroup) the
-    blocks must divide over its ranks and each rank's slab must fit, on
-    the rank's device."""
+def _batch_gate(problem: Problem, picked: tuple[int, int], chunk: int,
+                gsize: int, g=None
+                ) -> tuple[str | None, BatchSweepPlan | None]:
+    """(None, K5's plan at ``chunk`` points, None off the card) when the
+    batched kernels can run; else (a readable reason, None).  ``gsize``:
+    the group width of a group_l2 problem, 0 otherwise (K5's group prox
+    needs more shared memory).  With ``g`` (a ColumnGroup) the blocks must
+    divide over its ranks and each rank's slab must fit, on the rank's
+    device."""
     if picked[1] != 0:
         return (f"no pad-free block size for (m={problem.m}, "
-                f"n={problem.n})")
+                f"n={problem.n})"), None
     P = 1 if g is None else g.size
     n_blocks = problem.n // picked[0]
     if n_blocks % P:
-        return f"n_blocks={n_blocks} does not divide over {P} shards"
-    n_name = "n" if g is None else "n_local"
-    if not eligible_batch(problem.m, problem.n // P, picked[0], chunk,
-                          dtype=problem.dtype,
-                          device=problem.device if g is None else g.device,
-                          gsize=gsize):
+        return f"n_blocks={n_blocks} does not divide over {P} shards", None
+    dev = problem.device if g is None else g.device
+    plan = None
+    ok = eligible_batch(problem.m, problem.n // P, picked[0], chunk,
+                        dtype=problem.dtype, gsize=gsize)
+    if ok and dev.type == "cuda":
+        plan = batch_plan(dev, picked[0], problem.m, chunk, gsize)
+        ok = plan is not None
+    if not ok:
+        n_name = "n" if g is None else "n_local"
         return (f"eligible_batch failed for (m={problem.m}, "
                 f"{n_name}={problem.n // P}, B={picked[0]}, L={chunk}, "
-                f"dtype={problem.dtype})")
-    return None
+                f"dtype={problem.dtype})"), None
+    return None, plan
 
 
 def _shard_block(n: int, B: int, multiple: int,
@@ -450,6 +472,10 @@ class PreparedBatch(NamedTuple):
                                   # a mesh: this rank's slab of it)
     reason: str | None            # not None => gate failed
     slab: Problem | None = None   # with a mesh: this rank's slab problem
+    plan: BatchSweepPlan | None = None  # on the card: K5's plan at the
+                                        # chunk width prepared for (a
+                                        # narrower last chunk may fit
+                                        # larger clusters)
 
 
 def prepare_batched_solver(problem: Problem, cfg: SolverConfig, *,
@@ -471,7 +497,7 @@ def prepare_batched_solver(problem: Problem, cfg: SolverConfig, *,
         picked = _shard_block(problem.n, picked[0], multiple,
                               mesh.size) or picked
     gsize = multiple if problem.penalty.kind == "group_l2" else 0
-    reason = _batch_gate_reason(problem, picked, chunk, gsize, mesh)
+    reason, plan = _batch_gate(problem, picked, chunk, gsize, mesh)
     if reason is not None:
         return PreparedBatch(None, None, reason)
 
@@ -526,7 +552,7 @@ def prepare_batched_solver(problem: Problem, cfg: SolverConfig, *,
                               steps, pen, weights, state, rm, multiple, cfg,
                               polish if certify else None, mesh)
 
-    return PreparedBatch(solve_chunk, A_t, None, slab)
+    return PreparedBatch(solve_chunk, A_t, None, slab, plan)
 
 
 def _gather_rows(X: torch.Tensor, g) -> torch.Tensor:
@@ -601,9 +627,13 @@ def batched_lambda_path(
 
     prep = prepared
     if prep is None:
-        with span("cot.setup"):
+        with span("cot.setup") as setup:
             prep = prepare_batched_solver(problem, cfg, chunk=min(L, chunk),
                                           mesh=mesh)
+            if prep.plan is not None:
+                # the exchange K5's sweeps run with (csrc/sweep_batch.cu)
+                setup.set(k5_cs=prep.plan.cs, k5_nc=prep.plan.nc,
+                          k5_grid=prep.plan.grid)
     if prep.reason is not None:
         warnings.warn(
             f"bcd_batch gate failed ({prep.reason}); falling back to the "

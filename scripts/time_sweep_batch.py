@@ -1,11 +1,16 @@
 #!/usr/bin/env python3
 """K5 (`batch_sweep_t`, the batched BCD sweep) of one source tree on the
-card: config 2's A_t (625 x 80 x 5000, l1) at L = 1, 4, 10 and 16 and at
-L = 10 with a CV keep mask and row mask, and config 4's group tile (1000 x
-200 x 20000, group_l2 over groups of 200 with weights) at L = 10.
+card: config 2's A_t (625 x 80 x 5000, l1) at L = 1, 4, 10 and 16, at L =
+10 with a CV keep mask and row mask, and at L = 10 on its first 125
+blocks; a rank's slab of config 2's two-rank batched path (625 x 40 x
+5000) at L = 10; and config 4's group tile (1000 x 200 x 20000, group_l2
+over groups of 200 with weights) at L = 10.  With both config-2 L = 10
+settings, a last line splits their times into the cost of a block (the
+slope between 125 and 625 blocks) and the cost of a launch (what is left
+at 0 blocks).
 
     python3 scripts/time_sweep_batch.py [--root DIR]
-        [--only SETTING[,SETTING]]
+        [--only SETTING[,SETTING]] [--cluster-size CS]
 
 Imports `convex_optimization_tpu_torch` from DIR (default: this checkout)
 and `chip_smoke.py` from this checkout, so that two trees (a commit and its
@@ -19,8 +24,11 @@ JSON line carries ms per sweep, us per block, the bound (bytes at 3.35 TB/s
 or f32 operations at 67 TFLOP/s), the plan (on a tree that has
 `bcd_sweep_batch.batch_plan`), each CUDA kernel's mean device time per
 call from `torch.profiler`, the kernel build's seconds and the card's name
-and power limit.  A first line gives the seconds of compiling
-csrc/sweep_batch.cu alone.  Needs a CUDA card; imports nothing of JAX.
+and power limit.  ``--cluster-size CS`` plans K5 with clusters of CS CTAs
+only, in place of the first size of `K5_CLUSTER_SIZES` that fits (a tree
+without clusters refuses it).  A first line gives the seconds of
+compiling csrc/sweep_batch.cu alone.  Needs a CUDA card; imports nothing
+of JAX.
 """
 
 from __future__ import annotations
@@ -35,16 +43,19 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 REPS = 10
 C2 = (625, 80, 5000)
+C2_SLAB = (625, 40, 5000)
 C4 = (1000, 200, 20_000)
 C4_GSIZE = 200
-#: name -> (A_t shape, L, group, masked)
+#: name -> (A_t shape, L, group, masked, the blocks swept)
 SETTINGS = {
-    "config2_L1": (C2, 1, False, False),
-    "config2_L4": (C2, 4, False, False),
-    "config2_L10": (C2, 10, False, False),
-    "config2_L16": (C2, 16, False, False),
-    "config2_L10_cv_masks": (C2, 10, False, True),
-    "config4_group_L10": (C4, 10, True, False),
+    "config2_L1": (C2, 1, False, False, C2[0]),
+    "config2_L4": (C2, 4, False, False, C2[0]),
+    "config2_L10": (C2, 10, False, False, C2[0]),
+    "config2_L10_125_blocks": (C2, 10, False, False, 125),
+    "config2_L16": (C2, 16, False, False, C2[0]),
+    "config2_L10_cv_masks": (C2, 10, False, True, C2[0]),
+    "config2_slab40_L10": (C2_SLAB, 10, False, False, C2_SLAB[0]),
+    "config4_group_L10": (C4, 10, True, False, C4[0]),
 }
 
 
@@ -52,6 +63,7 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--only", default=",".join(SETTINGS))
+    ap.add_argument("--cluster-size", type=int, default=0)
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     import torch
@@ -68,6 +80,12 @@ def main() -> None:
 
     if not cot.__file__.startswith(root + os.sep):
         raise SystemExit(f"imported {cot.__file__}, not from {root}")
+    if args.cluster_size:
+        from convex_optimization_tpu_torch.ops import bcd_sweep_batch as kb
+
+        if not hasattr(kb, "K5_CLUSTER_SIZES"):
+            raise SystemExit(f"{root}: K5 takes no clusters")
+        kb.K5_CLUSTER_SIZES = (args.cluster_size,)
     gpu, power = [s.strip() for s in cs.card_line().split(",", 1)]
     _build.load()
     build_s = _build.build_seconds
@@ -77,15 +95,29 @@ def main() -> None:
                       "power_limit": power}), flush=True)
     dev = torch.device("cuda", 0)
     data: dict = {}
+    ms: dict = {}
     for name in args.only.split(","):
-        shape, L, group, masked = SETTINGS[name]
+        shape, L, group, masked, blocks = SETTINGS[name]
         if shape not in data:
             data.clear()
             data[shape] = make_data(shape, group, dev)
-        out = run_setting(cs, trace_us, data[shape], L, group, masked)
+        out = run_setting(cs, trace_us, data[shape], L, group, masked,
+                          blocks)
         out.update({"root": root, "setting": name, "A_t": list(shape),
-                    "build_s": build_s, "gpu": gpu, "power_limit": power})
+                    "cluster_size": args.cluster_size or None,
+                    "blocks": blocks, "build_s": build_s, "gpu": gpu,
+                    "power_limit": power})
+        ms[name] = out["ms"]
         print(json.dumps(out), flush=True)
+    if "config2_L10" in ms and "config2_L10_125_blocks" in ms:
+        per_block = (ms["config2_L10"] - ms["config2_L10_125_blocks"]) / (
+            C2[0] - 125)
+        print(json.dumps({
+            "root": root, "setting": "config2_L10_split",
+            "us_per_block": 1e3 * per_block,
+            "ms_per_launch": ms["config2_L10_125_blocks"] - 125 * per_block,
+            "cluster_size": args.cluster_size or None, "gpu": gpu,
+            "power_limit": power}), flush=True)
 
 
 def compile_seconds(_build, name: str) -> float:
@@ -134,7 +166,7 @@ def make_data(shape, group: bool, dev) -> dict:
 
 
 def run_setting(cs, trace_us, d: dict, L: int, group: bool,
-                masked: bool) -> dict:
+                masked: bool, blocks: int) -> dict:
     import numpy as np
     import torch
 
@@ -142,8 +174,9 @@ def run_setting(cs, trace_us, d: dict, L: int, group: bool,
     from convex_optimization_tpu_torch.ops import bcd_sweep_batch as kb
 
     A_t, b, steps = d["A_t"], d["b"], d["steps"]
-    nb, B, m = A_t.shape
-    n, dev = nb * B, A_t.device
+    _, B, m = A_t.shape
+    nb, dev = blocks, A_t.device
+    n = nb * B
     lam1s = torch.as_tensor(
         np.geomspace(0.95, 0.1 if group else 0.01, L) * d["lmax"],
         dtype=torch.float32, device=dev)
@@ -190,7 +223,7 @@ def run_setting(cs, trace_us, d: dict, L: int, group: bool,
     if hasattr(kb, "batch_plan"):
         plan = kb.batch_plan(dev, B, m, L, C4_GSIZE if group else 0)
         out["plan"] = dataclasses.asdict(plan) | {
-            "smem_bytes": plan.smem_bytes}
+            "grid": plan.grid, "smem_bytes": plan.smem_bytes}
     return out
 
 

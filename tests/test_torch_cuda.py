@@ -690,6 +690,120 @@ def test_batch_sweep_kernel_at_config4_group_widths(cuda):
         assert bool((rows_of(X_k)[:, ~keep] == 0).all())
 
 
+def test_batch_sweep_kernel_at_config2_shape(cuda):
+    """Config 2's shape (m = 5000, B = 80, L = 10, l1) over 16 blocks, as
+    the batched path launches it (its plan: clusters of the card's own
+    occupancy), against the plain version, masked and not."""
+    from convex_optimization_tpu_torch.ops.bcd_sweep_batch import batch_plan
+
+    p, _ = _data(5000, 16 * 80, 80, cuda)
+    plan = batch_plan(cuda, 80, 5000, 10)
+    assert plan.cs > 1 and plan.nc > 1
+    X, R, keep, rm, lam1s, steps = _batch(p, 10)
+    pen = _batch_penalty("l1", 16 * 80, 80, cuda)
+    for masks, R_in in (((None, None), R), ((keep, rm), rm * R)):
+        X_k, R_k = batch_sweep_t(p.A_t, X, R_in, steps, lam1s, p.lam2, pen,
+                                 *masks)
+        X_p, R_p = batch_sweep_t_plain(p.A_t, X, R_in, steps, lam1s, p.lam2,
+                                       pen, *masks)
+        _sweeps_close(X_k, R_k, X_p, R_p)
+
+
+@pytest.mark.parametrize("kind", ["l1", "group_l2"])
+@pytest.mark.parametrize("m", [1000, 201])
+def test_batch_sweep_kernel_with_ctas_without_rows(cuda, m, kind):
+    """Shapes whose last cluster holds CTAs without rows (their partials
+    are zeros; the float4 and the scalar instance) against the plain
+    version, and two launches the same bits."""
+    from convex_optimization_tpu_torch.ops.bcd_sweep_batch import batch_plan
+
+    B, L = 40, 5
+    n = 8 * B
+    p, _ = _data(m, n, B, cuda)
+    plan = batch_plan(cuda, B, m, L, B // 4 if kind == "group_l2" else 0)
+    assert plan.grid * plan.rows - m >= plan.rows      # a CTA without rows
+    X, R, keep, _, lam1s, steps = _batch(p, L)
+    pen = _batch_penalty(kind, n, B, cuda)
+    X_k, R_k = batch_sweep_t(p.A_t, X, R, steps, lam1s, p.lam2, pen, keep)
+    X_p, R_p = batch_sweep_t_plain(p.A_t, X, R, steps, lam1s, p.lam2, pen,
+                                   keep)
+    _sweeps_close(X_k, R_k, X_p, R_p)
+    X2, R2 = batch_sweep_t(p.A_t, X, R, steps, lam1s, p.lam2, pen, keep)
+    assert torch.equal(X_k, X2) and torch.equal(R_k, R2)
+
+
+def test_batch_sweep_kernel_is_deterministic_across_clusters(cuda):
+    """Many clusters (config 2's rows, 64 blocks, L = 16): two launches give
+    the same bits, with and without the row mask."""
+    from convex_optimization_tpu_torch.ops.bcd_sweep_batch import batch_plan
+
+    p, _ = _data(5000, 64 * 80, 80, cuda)
+    assert batch_plan(cuda, 80, 5000, 16).nc > 1
+    X, R, keep, rm, lam1s, steps = _batch(p, 16)
+    pen = _batch_penalty("l1", 64 * 80, 80, cuda)
+    for masks, R_in in (((keep, None), R), ((keep, rm), rm * R)):
+        X1, R1 = batch_sweep_t(p.A_t, X, R_in, steps, lam1s, p.lam2, pen,
+                               *masks)
+        X2, R2 = batch_sweep_t(p.A_t, X, R_in, steps, lam1s, p.lam2, pen,
+                               *masks)
+        assert torch.equal(X1, X2) and torch.equal(R1, R2)
+
+
+@pytest.mark.parametrize("m,B,kind", [(12_148, 400, "group_l2"),
+                                      (15_709, 400, "l1"),
+                                      (30_100, 200, "group_l2")])
+def test_batch_sweep_kernel_in_clusters_of_one(cuda, m, B, kind):
+    """Tiles near the shared-memory limit, whose plan takes clusters of one
+    CTA (the float4 instance, the scalar one, and bulk copies), against
+    the plain version, and two launches the same bits, masked and not."""
+    from convex_optimization_tpu_torch.ops.bcd_sweep_batch import batch_plan
+
+    L, n = 10, 3 * B
+    p, _ = _data(m, n, B, cuda)
+    gsize = B // 4 if kind == "group_l2" else 0
+    assert batch_plan(cuda, B, m, L, gsize).cs == 1
+    X, R, keep, rm, lam1s, steps = _batch(p, L)
+    pen = _batch_penalty(kind, n, B, cuda)
+    for masks, R_in in (((keep, None), R), ((keep, rm), rm * R)):
+        X_k, R_k = batch_sweep_t(p.A_t, X, R_in, steps, lam1s, p.lam2, pen,
+                                 *masks)
+        X_p, R_p = batch_sweep_t_plain(p.A_t, X, R_in, steps, lam1s, p.lam2,
+                                       pen, *masks)
+        _sweeps_close(X_k, R_k, X_p, R_p)
+        X2, R2 = batch_sweep_t(p.A_t, X, R_in, steps, lam1s, p.lam2, pen,
+                               *masks)
+        assert torch.equal(X_k, X2) and torch.equal(R_k, R2)
+
+
+def test_batched_path_setup_span_carries_the_k5_plan(cuda):
+    """The batched path's set-up span names the exchange its sweeps ran
+    with: the K5 plan's cluster size, cluster count and grid."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import convex_optimization_tpu_torch as cot
+    from convex_optimization_tpu_torch.core.datagen import (
+        make_lasso_instance_host,
+    )
+    from convex_optimization_tpu_torch.ops.bcd_sweep import (
+        pick_block_size_t,
+    )
+    from convex_optimization_tpu_torch.ops.bcd_sweep_batch import batch_plan
+    from convex_optimization_tpu_torch.solvers.common import SolverConfig
+    from convex_optimization_tpu_torch.utils.trace import RECORDER
+
+    inst, _, _ = make_lasso_instance_host(4, 300, 1200, device=cuda)
+    cfg = SolverConfig(tol=1e-5, max_iters=200, gap_every=10)
+    RECORDER.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        cot.lambda_path(inst.problem, cfg, path_len=4, method="bcd_batch")
+    attrs = [r["attrs"] for r in RECORDER.records(RECORDER.session)
+             if r["name"] == "cot.setup" and "k5_cs" in r["attrs"]]
+    RECORDER.clear()
+    plan = batch_plan(cuda, pick_block_size_t(1200, 128)[0], 300, 4)
+    assert attrs == [{"k5_cs": plan.cs, "k5_nc": plan.nc,
+                      "k5_grid": plan.grid}]
+
+
 def test_batched_path_on_card_matches_cpu(cuda):
     import convex_optimization_tpu_torch as cot
     from convex_optimization_tpu_torch.core.datagen import (

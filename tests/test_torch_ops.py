@@ -11,6 +11,8 @@ packages as numpy arrays.  Tolerances and why:
   * K9 sweep: as K1 after one sweep (1e-5).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -47,8 +49,10 @@ from convex_optimization_tpu_torch.ops.bcd_sweep import (
     to_tblock_major,
 )
 from convex_optimization_tpu_torch.ops.bcd_sweep_batch import (
+    K5_CLUSTER_SIZES,
     K5_MAX_SMEM_BYTES,
     K5_THREADS,
+    BatchSweepPlan,
     batch_sweep_tiling,
 )
 from convex_optimization_tpu_torch.ops.bcd_sweep_ref import bcd_sweep_ref
@@ -434,6 +438,12 @@ def test_matvec_tiling(n, m, k2_per_sm, k3_per_sm):
         assert p.k3_ctas * C > (k3_per_sm * sms) // 2
 
 
+#: the H100's K5 cluster occupancy at one CTA per SM: the most clusters of
+#: each size it holds at once (cudaOccupancyMaxActiveClusters on the card,
+#: NVIDIA H100 80GB HBM3)
+H100_K5_CLUSTERS = {8: 15, 4: 30, 2: 66, 1: 132}
+
+
 def _first_k5_smem(B, m, L, gsize, sms=132):
     """The first K5 design's shared memory (the old rule): one CTA per SM,
     an odd tile stride rows | 1, L + 1 residual and mask rows, dx (L, B),
@@ -443,11 +453,13 @@ def _first_k5_smem(B, m, L, gsize, sms=132):
     return 4 * (B * (rows | 1) + L * rows + rows + L * B + group)
 
 
-def _k5_plan_invariants(p, B, m, L, sms=132):
-    """What csrc/sweep_batch.cu's plan_ok demands of every plan."""
+def _k5_plan_invariants(p, B, m, L, clusters=H100_K5_CLUSTERS):
+    """What csrc/sweep_batch.cu's plan_ok demands of every plan, and the
+    cluster residency that batch_plan checks on the card."""
     LP = -(-L // 4) * 4
-    assert p.grid <= min(sms, m)
-    assert p.grid * p.rows >= m > (p.grid - 1) * p.rows
+    assert p.cs in K5_CLUSTER_SIZES and p.grid == p.cs * p.nc
+    assert 1 <= p.nc <= clusters[p.cs]
+    assert p.grid * p.rows >= m > (p.grid - p.cs) * p.rows
     assert p.smem_bytes <= K5_MAX_SMEM_BYTES
     assert 0 <= p.prefetch <= B and p.ld >= p.rows
     if p.vec:
@@ -457,7 +469,6 @@ def _k5_plan_invariants(p, B, m, L, sms=132):
     assert p.s1 == 1 or p.s1 * -(-B // 2) <= K5_THREADS
     units2 = LP // 4 * (p.rows // 4 if p.vec else p.rows)
     assert p.s2 == 1 or (p.s2 <= B and p.s2 * units2 <= K5_THREADS)
-    assert p.rw in (1, K5_THREADS // 32)
 
 
 @pytest.mark.parametrize("group", [False, True])
@@ -466,7 +477,7 @@ def _k5_plan_invariants(p, B, m, L, sms=132):
 @pytest.mark.parametrize("B", [8, 80, 200])
 def test_k5_tiling_takes_every_shape_the_first_design_took(B, m, L, group):
     gsize = B if group else 0
-    p = batch_sweep_tiling(B, m, L, gsize, 132)
+    p = batch_sweep_tiling(B, m, L, gsize, H100_K5_CLUSTERS)
     if _first_k5_smem(B, m, L, gsize) <= K5_MAX_SMEM_BYTES:
         assert p is not None
     if p is not None:
@@ -487,7 +498,7 @@ def test_k5_tiling_takes_the_first_designs_largest_tiles(B, L, ragged):
         m += 1
     m -= int(m % 4 == 0) if ragged else m % 4
     assert _first_k5_smem(B, m, L, gsize) <= K5_MAX_SMEM_BYTES
-    p = batch_sweep_tiling(B, m, L, gsize, 132)
+    p = batch_sweep_tiling(B, m, L, gsize, H100_K5_CLUSTERS)
     assert p is not None
     _k5_plan_invariants(p, B, m, L)
 
@@ -496,24 +507,144 @@ def test_k5_tiling_takes_the_first_designs_largest_tiles(B, L, ragged):
                                          for L in (1, 4, 10, 16)]
                          + [(80, 10_000, 10, 0), (80, 5000, 10, 8)])
 def test_k5_tiling_double_buffers_config2_and_cv(B, m, L, gsize):
-    p = batch_sweep_tiling(B, m, L, gsize, 132)
+    p = batch_sweep_tiling(B, m, L, gsize, H100_K5_CLUSTERS)
     assert p.vec and p.prefetch == B
     assert p.s1 > 1 and p.s2 > 1
     _k5_plan_invariants(p, B, m, L)
 
 
 def test_k5_tiling_prefetches_part_of_config4s_group_tile():
-    p = batch_sweep_tiling(200, 20_000, 10, 200, 132)
-    assert p.vec and p.rows == 152 and p.grid == 132
+    """Config 4's group tile in 15 clusters of 8 (120 CTAs of 168 rows,
+    where 132 CTAs took 152 before the clusters): the next tile is only
+    partly prefetched."""
+    p = batch_sweep_tiling(200, 20_000, 10, 200, H100_K5_CLUSTERS)
+    assert p.vec and (p.cs, p.nc) == (8, 15)
+    assert p.rows == 168 and p.grid == 120
     assert 0 < p.prefetch < 200
     _k5_plan_invariants(p, 200, 20_000, 10)
 
 
 @pytest.mark.parametrize("m", [201, 5001, 10_003])
 def test_k5_tiling_takes_the_scalar_instance_at_ragged_m(m):
-    p = batch_sweep_tiling(80, m, 10, 0, 132)
+    p = batch_sweep_tiling(80, m, 10, 0, H100_K5_CLUSTERS)
     assert not p.vec and p.ld % 2 == 1
     _k5_plan_invariants(p, 80, m, 10)
+
+
+@pytest.mark.parametrize("clusters", [
+    H100_K5_CLUSTERS, {8: 16, 4: 33, 2: 66, 1: 132}, {4: 30, 2: 66, 1: 132},
+    {1: 132}, {2: 66, 1: 132}])
+@pytest.mark.parametrize("B,m,L", [(80, 5000, 10), (80, 201, 3),
+                                   (200, 20_000, 10), (32, 256, 16),
+                                   (8, 7, 1)])
+def test_k5_plan_grid_is_whole_clusters_covering_m(clusters, B, m, L):
+    """The grid is nc whole clusters of the first size in
+    K5_CLUSTER_SIZES that divides B and fits, no more clusters than the
+    card holds; its
+    first ceil(m / rows) CTAs cover m with whole rows, and only its last
+    cluster may hold CTAs without rows."""
+    p = batch_sweep_tiling(B, m, L, 0, clusters)
+    _k5_plan_invariants(p, B, m, L, clusters)
+    assert p.cs == next(cs for cs in K5_CLUSTER_SIZES
+                        if clusters.get(cs) and B % cs == 0)
+    with_rows = -(-m // p.rows)
+    assert p.grid - p.cs < with_rows <= p.grid
+    owned = [min(p.rows, max(0, m - c * p.rows)) for c in range(p.grid)]
+    assert sum(owned) == m
+    assert all(o == p.rows for o in owned[:with_rows - 1])
+    assert not any(owned[with_rows:])
+
+
+@pytest.mark.parametrize("cs", K5_CLUSTER_SIZES)
+@pytest.mark.parametrize("L,B", [(1, 8), (3, 40), (10, 80), (16, 200),
+                                 (10, 200), (1, 16)])
+def test_k5_slices_cover_every_pair_exactly_once(cs, L, B):
+    """The cs ranks of a cluster own the b's [k Bs, k Bs + Bs) (Bs = B / cs)
+    at every l: every pair (b, l) has one owner, whose slice is the
+    contiguous run [k SL, k SL + SL) of the exchange's b-major order b L +
+    l (SL = Bs L)."""
+    p = BatchSweepPlan(B, L, 0, cs, 4, 4, True, 0, 1, 1, cs, 1)
+    Bs, SL = B // cs, p.slice_len
+    assert SL == Bs * L
+    owners = [0] * (L * B)
+    for k in range(cs):
+        for t in range(SL):                   # the kernel's pair t of rank k
+            b, l = k * Bs + t // L, t % L
+            assert b * L + l == k * SL + t
+            owners[b * L + l] += 1
+    assert owners == [1] * (L * B)
+
+
+def _k5_layout_floats(p):
+    """csrc/sweep_batch.cu's ``layout``, region by region: the ring, r,
+    the row mask, dx, the segment sums, every rank's partials (B LP floats
+    on a 16-byte boundary; none in a cluster of one), X's group slice and
+    scales, four mbarriers (none for the scalar cluster of one)."""
+    LP = -(-p.L // 4) * 4
+
+    def up4(v, vec=p.vec):
+        return -(-v // 4) * 4 if vec else v
+
+    red1 = (p.s1 - 1) * 2 * LP * -(-p.B // 2)
+    red2 = (p.s2 - 1) * LP * p.rows
+    o = (p.B + p.prefetch) * p.ld
+    o += up4(p.L * p.rows)
+    o += up4(p.rows)
+    o += up4(p.B * (LP if p.vec else p.L))
+    o += up4(max(red1, red2))
+    if p.cs > 1:
+        o = up4(o, True) + p.B * LP
+    o += p.L * p.B + p.L * (p.B // p.gsize) if p.gsize else 0
+    return up4(o, True) + 8 if p.vec or p.cs > 1 else o
+
+
+@pytest.mark.parametrize("cs", K5_CLUSTER_SIZES)
+@pytest.mark.parametrize("B,m,L,gsize", [(80, 5000, 10, 0), (80, 5000, 3, 8),
+                                         (200, 20_000, 10, 200),
+                                         (80, 5001, 10, 0), (40, 201, 16, 40)])
+def test_k5_smem_mirror_matches_the_layout(cs, B, m, L, gsize):
+    """BatchSweepPlan.smem_bytes is the kernel's layout, with every rank's
+    partials (B LP floats, none for cs = 1) in place of the reducing warps'
+    scratch, and the scalar cluster of one exactly the first design's."""
+    p = batch_sweep_tiling(B, m, L, gsize, {cs: H100_K5_CLUSTERS[cs]})
+    assert p.cs == cs
+    assert p.smem_bytes == 4 * _k5_layout_floats(p)
+    one = dataclasses.replace(p, cs=1, nc=p.grid)
+    LP = -(-L // 4) * 4
+    if cs > 1:        # B LP floats, and for the scalar instance its mbarriers
+        assert 4 * B * LP <= p.smem_bytes - one.smem_bytes <= 4 * (
+            B * LP + 14)
+    plain = dataclasses.replace(one, vec=False, s1=1, s2=1, prefetch=0,
+                                ld=p.rows | 1)
+    group = L * B + L * (B // gsize) if gsize else 0
+    assert plain.smem_bytes == 4 * (B * (p.rows | 1) + L * p.rows + p.rows
+                                    + L * B + group)
+
+
+def test_k5_config2_plan_on_the_h100():
+    """Config 2 (B = 80, m = 5000, L = 10) on the H100: 15 clusters of 8
+    (120 CTAs), 114 of them with 44 rows; each slice of 100 pairs is summed
+    over a cluster's 8 partials in rank order, then over the 15 clusters
+    in order."""
+    p = batch_sweep_tiling(80, 5000, 10, 0, H100_K5_CLUSTERS)
+    assert (p.cs, p.nc, p.grid, p.rows) == (8, 15, 120, 44)
+    assert -(-5000 // p.rows) == 114 and p.slice_len == 100
+
+
+def test_k5_config2_order_on_sixteen_clusters_of_eight():
+    """On a card that held 16 clusters of 8, config 2 takes 128 CTAs of 40
+    rows: the first 125 own the rows that the 125 CTAs of the design before
+    the clusters owned (so their phase-1 partials are the same), the last 3
+    none, and each pair's 128 partials are summed in 16 consecutive groups
+    of 8, then in group order.  The design before summed 12 groups of 11
+    (ceil(125 / 12), its 12 reducing warps), so the bits differ from it
+    whatever the card."""
+    p = batch_sweep_tiling(80, 5000, 10, 0, {8: 16, 4: 33, 2: 66, 1: 132})
+    assert (p.cs, p.nc, p.grid, p.rows) == (8, 16, 128, 40)
+    assert -(-5000 // p.rows) == 125
+    groups = [list(range(q * p.cs, (q + 1) * p.cs)) for q in range(p.nc)]
+    assert [c for g in groups for c in g] == list(range(p.grid))
+    assert -(-125 // (K5_THREADS // 32)) == 11 != p.cs
 
 
 def _k1_plan_invariants(p, B, m, sms=132):

@@ -344,6 +344,55 @@ def test_batched_path_certifies_converged_points_in_f64(seed):
         assert abs(float(res.gaps[l]) - gap) <= 1e-3 * gap + 1e-12, l
 
 
+@pytest.mark.parametrize("readings,want", [
+    ({0.0: 2e-6, 1.0: 1.5e-6, 2.0: 3e-6, 3.0: 8e-7}, (3.0, 8e-7)),
+    ({0.0: 2e-6, 1.0: 1.9e-6, 2.0: 1.8e-6, 3.0: 1.7e-6, 4.0: 1e-7},
+     (3.0, 1.7e-6))])
+def test_confirm_polishes_a_failed_claim_again_from_its_rounded_x(
+        readings, want):
+    """A claim that fails in f64 is polished, then polished again from the
+    last polish's output while its reading stays above tol, at most
+    POLISH_TRIES times; the best reading and its x are kept.  A claim
+    that holds, and a point that claims nothing, are left as they are.
+    Point 1's f64 reading is looked up from its x; a polish adds 1."""
+    from convex_optimization_tpu_torch.solvers import batched_path as bp
+
+    assert bp.POLISH_TRIES == 3
+    tol, L, m = 1e-6, 3, 4
+    X = torch.zeros((1, L, 2))
+    zeros = torch.zeros(L)
+    state = bp._BatchState(
+        X=X, R=torch.zeros((L, m)), X_best=X.clone(),
+        R_best=torch.zeros((L, m)), best_gap=zeros,
+        best_rel=torch.tensor([5e-7, 9e-7, 1e-5]), best_primal=zeros,
+        iters_done=zeros, since_best=zeros, k=10)
+    polished = []
+
+    def exact_gap(X, sel):
+        rel = torch.tensor([5e-7, readings[float(X[0, 1, 0])], 0.0],
+                           dtype=torch.float64)
+        rel = torch.where(sel, rel, torch.zeros_like(rel))
+        R = torch.where(sel[:, None], X[0, :, :1].double().expand(L, m),
+                        torch.zeros((L, m), dtype=torch.float64))
+        return rel, 10 * rel, R
+
+    def polish(lam, x):
+        polished.append(float(x[0]))
+        return x + 1.0
+
+    out = bp._confirm(state, torch.tensor([3.0, 2.0, 1.0]), tol, exact_gap,
+                      polish)
+    assert polished == [0.0, 1.0, 2.0]
+    x1, rel1 = want
+    assert float(out.X_best[0, 1, 0]) == x1
+    assert float(out.best_rel[1]) == pytest.approx(rel1)
+    assert float(out.best_gap[1]) == pytest.approx(10 * rel1)
+    assert bool((out.R_best[1] == x1).all())
+    assert float(out.best_rel[0]) == pytest.approx(5e-7)
+    assert float(out.best_rel[2]) == pytest.approx(1e-5)
+    assert bool((out.X_best[:, [0, 2]] == 0).all())
+
+
 def test_batched_path_dense_grid_chunks():
     """Grids past MAX_BATCH run in warm-started chunks and stay
     certified."""
