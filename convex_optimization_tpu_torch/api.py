@@ -58,7 +58,17 @@ class Result:
                                 # constants (K4 and the sweep's plan, or
                                 # L_total), the screen's column norms
     screened: int = 0        # coordinates the last check's gap-safe screen
-                             # froze (screen_every > 0; not in the JAX package)
+                             # froze (screen_every > 0; not in the JAX
+                             # package).  The last check alone: the whole
+                             # solve's screen is in the two fields below
+    kept_col_sweeps: int = 0  # sum over the sweeps or steps of the columns
+                              # the mask in force kept (a screened bcd,
+                              # bcd_pallas, fista or ista solve on one
+                              # device, else 0); also the cot.loop span's
+                              # attribute, which PERF.md's kept share reads
+    keep_mask: Optional[torch.Tensor] = None  # those solves' final (n,)
+                              # bool mask, False where the screen froze the
+                              # column; None with screening off
 
     @property
     def nnz(self) -> int:
@@ -238,15 +248,17 @@ def _solve_fista(problem: Problem, method: str, x0, cfg: SolverConfig
     with span("cot.loop") as loop:
         final = fista_mod.fista(problem, L_total, state0, cfg, col_norms)
         _sync(device)
-    loop.set(iterations=final.k)
+    loop.set(iterations=final.k, kept_col_sweeps=final.kept_col_sweeps)
     return _result(final, method, cfg, loop.seconds, setup.seconds)
 
 
 def _result(final, method: str, cfg: SolverConfig, wall: float,
             setup_s: float, n: int | None = None) -> Result:
     """Result from a final state: the best-certified iterate (cut to the
-    first ``n`` coordinates when given) and its check's numbers."""
+    first ``n`` coordinates when given), its check's numbers and, when
+    the checks screened, the final keep mask and the kept-column count."""
     keep = final.keep_mask if n is None else final.keep_mask[:n]
+    screening = cfg.screen_every > 0
     return Result(
         x=final.x_best if n is None else final.x_best[:n],
         gap=final.best_gap,
@@ -259,8 +271,9 @@ def _result(final, method: str, cfg: SolverConfig, wall: float,
         method=method,
         config=cfg,
         setup_time_s=setup_s,
-        screened=(int(keep.numel() - keep.sum()) if cfg.screen_every > 0
-                  else 0),
+        screened=int(keep.numel() - keep.sum()) if screening else 0,
+        kept_col_sweeps=final.kept_col_sweeps,
+        keep_mask=keep if screening else None,
     )
 
 
@@ -301,7 +314,7 @@ def _solve_bcd(problem: Problem, method: str, x0, cfg: SolverConfig
     with span("cot.loop") as loop:
         final = bcd_mod.bcd(problem, block_L, state0, cfg, col_norms)
         _sync(device)
-    loop.set(iterations=final.k)
+    loop.set(iterations=final.k, kept_col_sweeps=final.kept_col_sweeps)
     return _result(final, method, cfg, loop.seconds, setup.seconds, orig_n)
 
 

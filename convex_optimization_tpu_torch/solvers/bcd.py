@@ -38,6 +38,7 @@ from convex_optimization_tpu_torch.ops.matvec import (
 from convex_optimization_tpu_torch.solvers.common import (
     SolverConfig,
     SolveState,
+    count_kept,
 )
 from convex_optimization_tpu_torch.solvers.fista import (  # noqa: F401
     _check_and_record,
@@ -98,8 +99,8 @@ def bcd(problem: Problem, block_L: torch.Tensor, state: SolveState,
     ``stall_checks`` checks without a new best.  block_L holds per-block
     ||A_j||_2^2 (no lam2); B = n / len(block_L).  With
     ``cfg.screen_every > 0`` every check screens and the sweeps freeze the
-    screened coordinates through their keep mask (``col_norms`` as in
-    ``fista.fista``).
+    screened coordinates through their keep mask (``col_norms`` and the
+    kept-column count as in ``fista.fista``).
 
     cfg.use_pallas: sweeps, refresh and witness go through K1 or K9
     (``pick_sweep``), K2, K3 (kernels for CUDA tensors, their plain
@@ -123,11 +124,11 @@ def bcd(problem: Problem, block_L: torch.Tensor, state: SolveState,
         def refresh_and_check(s: SolveState) -> SolveState:
             # exact residual refresh once per check pins the drift of the
             # incrementally maintained r; K3 reuses the fresh r
-            with span("cot.check"):
+            with span("cot.check") as sp:
                 r = ax_minus_b_t(A_t, s.x, problem.b)
                 z = neg_at_r_t(A_t, r, s.x, lam2)
                 return _check_and_record(problem, s._replace(r=r), z=z,
-                                         col_norms=col_norms)
+                                         col_norms=col_norms, check_span=sp)
     else:
         order = range(n_blocks)
 
@@ -137,17 +138,19 @@ def bcd(problem: Problem, block_L: torch.Tensor, state: SolveState,
                                  keep_mask=st.keep_mask)
 
         def refresh_and_check(s: SolveState) -> SolveState:
-            with span("cot.check"):
+            with span("cot.check") as sp:
                 s = s._replace(r=problem.residual(s.x))
-                return _check_and_record(problem, s, col_norms=col_norms)
+                return _check_and_record(problem, s, col_norms=col_norms,
+                                         check_span=sp)
 
     state = refresh_and_check(state)
     while continue_loop(state, cfg):
+        k0 = state.k
         with span("cot.steps"):
             for _ in range(cfg.gap_every):
                 x, r = sweep(state)
                 state = state._replace(x=x, r=r, k=state.k + 1)
-        state = refresh_and_check(state)
+        state = refresh_and_check(count_kept(state, k0))
     return state
 
 

@@ -49,18 +49,24 @@ class History:
     gap: list = dataclasses.field(default_factory=list)
     rel_gap: list = dataclasses.field(default_factory=list)
     nnz: list = dataclasses.field(default_factory=list)
+    kept: list = dataclasses.field(default_factory=list)  # screened only
 
-    def record(self, iteration, primal, dual, gap, rel_gap, nnz) -> None:
+    def record(self, iteration, primal, dual, gap, rel_gap, nnz,
+               kept: int | None = None) -> None:
         self.iteration.append(int(iteration))
         self.primal.append(primal)
         self.dual.append(dual)
         self.gap.append(gap)
         self.rel_gap.append(rel_gap)
         self.nnz.append(int(nnz))
+        if kept is not None:
+            self.kept.append(int(kept))
 
     def trimmed(self) -> dict:
-        """dict of numpy arrays (the JAX History.trimmed() layout)."""
-        return {
+        """dict of numpy arrays (the JAX History.trimmed() layout; a
+        screened solve adds ``kept``, the columns each check's mask
+        keeps)."""
+        out = {
             "iteration": np.asarray(self.iteration, np.int32),
             "primal": np.asarray(self.primal, np.float64),
             "dual": np.asarray(self.dual, np.float64),
@@ -68,13 +74,19 @@ class History:
             "rel_gap": np.asarray(self.rel_gap, np.float64),
             "nnz": np.asarray(self.nnz, np.int32),
         }
+        if self.kept:
+            out["kept"] = np.asarray(self.kept, np.int64)
+        return out
 
 
 class SolveState(NamedTuple):
     """Solver carry: device tensors plus the last check's host scalars.
     The FISTA momentum fields (x_prev, r_prev, t_mom: a 0-d tensor on the
     device, so that the restart test needs no host sync) stay at their
-    start values in BCD."""
+    start values in BCD.  ``kept`` is the column count of the last
+    screened check's keep mask (None while no check has screened);
+    ``kept_col_sweeps`` sums, over the sweeps or steps run, the columns
+    the mask in force kept."""
 
     x: torch.Tensor
     r: torch.Tensor          # A x - b, maintained incrementally or refreshed
@@ -92,6 +104,8 @@ class SolveState(NamedTuple):
     x_prev: torch.Tensor | None = None
     r_prev: torch.Tensor | None = None
     t_mom: torch.Tensor | None = None
+    kept: int | None = None
+    kept_col_sweeps: int = 0
 
 
 def count_nnz(x: torch.Tensor) -> torch.Tensor:
@@ -99,19 +113,31 @@ def count_nnz(x: torch.Tensor) -> torch.Tensor:
 
 
 def record_check(state: SolveState, info: dict, x_for_best: torch.Tensor,
-                 nnz: int, keep: torch.Tensor) -> SolveState:
+                 nnz: int, keep: torch.Tensor,
+                 kept: int | None = None) -> SolveState:
     """Gap-check bookkeeping: history record, screening mask, stall
     counter, best-iterate tracking.  ``info`` holds the check's host
-    floats (gap, primal, dual, rel_gap)."""
+    floats (gap, primal, dual, rel_gap); ``kept`` the new mask's column
+    count, when the check screened."""
     state.history.record(state.k, info["primal"], info["dual"], info["gap"],
-                         info["rel_gap"], nnz)
+                         info["rel_gap"], nnz, kept)
     improved = info["rel_gap"] < state.best_rel_gap
     return state._replace(
         rel_gap=info["rel_gap"], gap=info["gap"], primal=info["primal"],
-        keep_mask=keep,
+        keep_mask=keep, kept=state.kept if kept is None else kept,
         best_rel_gap=min(info["rel_gap"], state.best_rel_gap),
         stall=0 if improved else state.stall + 1,
         x_best=x_for_best.clone() if improved else state.x_best,
         best_gap=info["gap"] if improved else state.best_gap,
         best_primal=info["primal"] if improved else state.best_primal,
     )
+
+
+def count_kept(state: SolveState, k0: int) -> SolveState:
+    """Add the sweeps or steps run since iteration ``k0``, each times the
+    columns that the mask in force keeps, to ``kept_col_sweeps`` (a
+    screened solve only: the mask changes at checks alone)."""
+    if state.kept is None:
+        return state
+    return state._replace(kept_col_sweeps=state.kept_col_sweeps
+                          + state.kept * (state.k - k0))

@@ -27,22 +27,27 @@ from convex_optimization_tpu_torch.solvers.common import (
     History,
     SolverConfig,
     SolveState,
+    count_kept,
     count_nnz,
     record_check,
 )
-from convex_optimization_tpu_torch.utils.trace import span
+from convex_optimization_tpu_torch.utils.trace import Span, span
 
 
 def _check_and_record(problem: Problem, state: SolveState,
                       z: torch.Tensor | None = None,
-                      col_norms: torch.Tensor | None = None) -> SolveState:
+                      col_norms: torch.Tensor | None = None,
+                      check_span: Span | None = None) -> SolveState:
     """Duality-gap check + history record, with ONE host sync (the
     ``cot.sync`` span): the gap's scalars and the support size come back in
     a single transfer.  Pass a precomputed ``z`` (= -A^T r - lam2 x, from
     K3) to skip the plain witness.  With ``col_norms`` (the augmented
     column norms; callers pass them when ``cfg.screen_every > 0``) the
     gap-safe screen at this check tightens the keep mask on the device, as
-    the JAX package's check does."""
+    the JAX package's check does, and the new mask's column count comes
+    back in the same transfer: it goes into the history, the state's
+    ``kept`` and the attribute ``kept`` of ``check_span`` (the caller's
+    ``cot.check``)."""
     x, r = state.x, state.r
     if z is None:
         z = dual_witness(problem, x, r)
@@ -58,12 +63,20 @@ def _check_and_record(problem: Problem, state: SolveState,
         keep = keep & problem.penalty.screen_keep(
             z, info.alpha, info.gap, col_norms, r_norm=torch.sqrt(rr),
             primal=info.primal)
-    packed = torch.stack([info.gap, info.primal, info.dual, info.rel_gap,
-                          count_nnz(x).to(info.gap.dtype)])
+    parts = [info.gap, info.primal, info.dual, info.rel_gap,
+             count_nnz(x).to(info.gap.dtype)]
+    if col_norms is not None:
+        parts.append(count_nnz(keep).to(info.gap.dtype))
+    packed = torch.stack(parts)
     with span("cot.sync"):
         vals = packed.tolist()
     host = dict(zip(("gap", "primal", "dual", "rel_gap"), vals[:4]))
-    return record_check(state, host, x, int(vals[4]), keep)
+    kept = None
+    if col_norms is not None:
+        kept = int(vals[5])
+        if check_span is not None:
+            check_span.set(kept=kept)
+    return record_check(state, host, x, int(vals[4]), keep, kept)
 
 
 def init_state(problem: Problem, x0: torch.Tensor | None,
@@ -160,23 +173,26 @@ def fista(problem: Problem, L_total: float, state: SolveState,
     must be >= ||A||_2^2 + lam2 (``ops.matvec.spectral_norm_sq_t``); the
     check's witness is K3's.  With ``cfg.screen_every > 0`` every check
     screens (``col_norms``: the problem's augmented column norms, computed
-    here when not given).  Spans (``utils/trace``): ``cot.steps`` around
-    each ``gap_every`` steps, ``cot.check`` around each check; the caller
-    opens ``cot.loop`` around the call."""
+    here when not given; the state counts the kept columns,
+    ``SolveState.kept_col_sweeps``).  Spans (``utils/trace``):
+    ``cot.steps`` around each ``gap_every`` steps, ``cot.check`` around
+    each check; the caller opens ``cot.loop`` around the call."""
     L_total = float(L_total)
     # lam1 as a Python float: read once here, not once per step
     problem = problem.with_lam1(float(problem.penalty.lam1))
     col_norms = screen_norms(problem, cfg, col_norms)
 
     def check(s: SolveState) -> SolveState:
-        with span("cot.check"):
+        with span("cot.check") as sp:
             z = neg_at_r_t(problem.A_t, s.r, s.x, problem.lam2)
-            return _check_and_record(problem, s, z=z, col_norms=col_norms)
+            return _check_and_record(problem, s, z=z, col_norms=col_norms,
+                                     check_span=sp)
 
     state = check(state)
     while continue_loop(state, cfg):
+        k0 = state.k
         with span("cot.steps"):
             for _ in range(cfg.gap_every):
                 state = fista_step(problem, L_total, state, cfg)
-        state = check(state)
+        state = check(count_kept(state, k0))
     return state

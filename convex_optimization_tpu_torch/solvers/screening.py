@@ -8,6 +8,16 @@ check tightens when ``SolverConfig.screen_every > 0``
 (``solvers/fista._check_and_record``).  ``compact_problem`` drops the
 screened columns for a smaller solve.
 
+Counters of what the screen did (single-device solves): each screened
+check's kept-column count, in the same host transfer as its gap (the
+history's ``kept`` and the ``cot.check`` span's attribute ``kept``); their
+sum over the sweeps or steps, ``Result.kept_col_sweeps`` and the
+``cot.loop`` span's attribute of that name, which the benchmark's kept
+share and kept-column roofline read; the final mask,
+``Result.keep_mask``, by which the benchmark checks that no frozen column
+ends nonzero.  ``Result.screened`` counts the last check's frozen columns
+alone (the sharded solvers' too).
+
 Safety property (tested): a gap-safe mask never discards a coordinate of
 the support of the exact solution at the same lam1.
 """
