@@ -29,8 +29,11 @@ non-zero without one.  Phases, each of which fails the run if it fails:
      solve(method="bcd_pallas", tol=1e-6, max_iters=20000, gap_every=10,
      stall_checks=15, block_size=128), polish_support(..., A_host=A_np);
      the f64 certificate must reach rel_gap <= 1e-6, every kernel's launch
-     count must have grown, and K3's rounding bound must hold for every
-     column at the final polish residual;
+     count must have grown (K10's too: the polish of a card problem runs
+     its CD there), and K3's rounding bound must hold for every column at
+     the final polish residual; then K10 and its check's products on the
+     polished support's slab against the host route's f64 arithmetic
+     (``compare_cd64``), timed, with their JSON line;
   5. the batched kernels (K5 sweep, K6 refresh, K7 witness) against their
      plain versions, at a small shape and on config 2's A_t (625 x 80 x
      5000): K6 and K7 at L = 1, 4, 10, 16, each launched twice on the same
@@ -341,8 +344,17 @@ KERNELS = {
                      "convex_optimization_tpu/ops/matvec_pallas.py:91"),
     "block_power_gram_t": ("convex_optimization_tpu_torch/csrc/matvec.cu",
                            "convex_optimization_tpu/ops/matvec_pallas.py:91"),
+    # K10, the f64 polish's CD and its check's two products (phase 4): in
+    # the JAX package they run on the host, in f64
+    "cd64_sweeps_t": ("convex_optimization_tpu_torch/csrc/cd64.cu",
+                      "convex_optimization_tpu/solvers/polish.py:520"),
+    "cd64_residual_t": ("convex_optimization_tpu_torch/csrc/cd64.cu",
+                        "convex_optimization_tpu/solvers/polish.py:502"),
+    "cd64_atr_t": ("convex_optimization_tpu_torch/csrc/cd64.cu",
+                   "convex_optimization_tpu/solvers/polish.py:467"),
 }
-MAIN_KERNELS = ("sweep_t", "ax_minus_b_t", "neg_at_r_t", "block_power_t")
+MAIN_KERNELS = ("sweep_t", "ax_minus_b_t", "neg_at_r_t", "block_power_t",
+                "cd64_sweeps_t", "cd64_residual_t", "cd64_atr_t")
 PATH_KERNELS = ("block_power_t", "batch_sweep_t", "ax_minus_b_batch_t",
                 "neg_at_r_batch_t")
 
@@ -1680,6 +1692,133 @@ def witness_bound_check(problem, x_pol, b_np) -> float:
     ratio = float(((z32.to(torch.float64) - z64).abs() / bound).max())
     require(ratio <= 1.0, f"K3 witness bound violated (ratio {ratio})")
     return ratio
+
+
+def cd64_work(k: int, m: int, B: int, sweeps: int) -> dict:
+    """(bytes, flops) of K10 and of its check's products, by wrapper, over
+    a (k, m) slab.  A launch of ``sweeps`` sweeps reads, each sweep, the
+    slab, the block Grams (k B f64), x and the prox's three coefficients,
+    and writes x; r in and out once.  The refresh reads the slab, x and b
+    and writes r; z_S the slab, r and x and writes z.  No operations are
+    counted: the f64 multiply-adds (2 k m a pass) at the H100's 34
+    TFLOP/s f64 take a twentieth of the slab's bytes' time."""
+    return {"cd64_sweeps_t": (sweeps * (4 * k * m + 8 * k * B + 40 * k)
+                              + 16 * m, 0),
+            "cd64_residual_t": (4 * k * m + 8 * k + 16 * m, 0),
+            "cd64_atr_t": (4 * k * m + 16 * k + 8 * m, 0)}
+
+
+def compare_cd64(problem, x32, S, A_np, b_np, stats: dict,
+                 card: tuple) -> None:
+    """K10 and its check's two products on the support S gathered on the
+    card as the polish gathers it, against the host route's f64
+    arithmetic on the same columns (``native.cd64_sweeps``, as ``_cd64``
+    calls it, ``_residual_sparse32``, ``_gemv_t_mixed``), from the f32
+    solve's x: r and z to 1e-10 of the sums of their terms' sizes, z_S
+    from the slab and through an index into A's rows; one launch of two
+    sweeps against two host sweeps from the same x and r, x to 1e-10 of
+    its largest entry and r as above.  Each timed beside its plain
+    version; one JSON line with K10's ms a sweep, its bound and the host
+    sweeps' wall."""
+    import numpy as np
+    import torch
+
+    from convex_optimization_tpu_torch.ops import cd64 as k10
+    from convex_optimization_tpu_torch.solvers import polish as pol
+    from convex_optimization_tpu_torch.utils import native
+
+    dev = problem.device
+    f64 = torch.float64
+    m, k = problem.m, len(S)
+    lam1, lam2 = float(problem.penalty.lam1), float(problem.lam2)
+    nonneg = problem.penalty.kind == "nonneg_l1"
+    plan = k10.cd64_plan(dev, m)
+    B = plan.B
+    S_t = torch.as_tensor(S, device=dev)
+    slab = k10.support_slab(problem.A_rows, S_t, B)
+    kp = slab.shape[0]
+    As, _ = pol._gather_cols(A_np, S, np.float32)
+    b = np.asarray(b_np, np.float64)
+    b_dev = torch.from_numpy(b).to(dev)
+    x = torch.zeros((kp,), dtype=f64, device=dev)
+    x[:k] = x32[S_t].to(f64)
+    xs = x[:k].cpu().numpy()
+    abs_slab = slab.abs()
+
+    def r_scale(xv):
+        """|A_S| |x| + |b| per row."""
+        return k10.cd64_residual_t_plain(abs_slab, xv.abs(),
+                                         -b_dev.abs()).cpu().numpy()
+
+    def close(what, got, want, scale) -> float:
+        err = np.abs(got - want)
+        require(bool((err <= 1e-10 * scale).all()),
+                f"K10 {what}: err/scale {float((err / scale).max())}")
+        return float(err.max())
+
+    # the check's exact refresh r = A_S x - b
+    r = k10.cd64_residual_t(slab, x, b_dev)
+    r_np = r.cpu().numpy()
+    err_r = close("r = A_S x - b", r_np, pol._residual_sparse32(As, xs, b),
+                  r_scale(x))
+    # z_S = -A_S^T r - lam2 x, from the slab and from A's rows
+    z_want = pol._gemv_t_mixed(As, r_np, lam2, xs)
+    z_scale = (-k10.cd64_atr_t_plain(abs_slab, r.abs())[:k].cpu().numpy()
+               + lam2 * np.abs(xs))
+    err_z = max(
+        close("z_S from the slab",
+              k10.cd64_atr_t(slab, r, x, lam2)[:k].cpu().numpy(), z_want,
+              z_scale),
+        close("z_S from A's rows",
+              k10.cd64_atr_t(problem.A_rows, r, x[:k], lam2,
+                             idx=S_t).cpu().numpy(), z_want, z_scale))
+    # two sweeps: one launch against the host's native sweeps
+    gram = k10.block_gram64(slab, B)
+    col_sq = torch.diagonal(gram, dim1=1, dim2=2).reshape(-1) + lam2
+    col_sq[k:] = 1.0
+    xk, rk = x.clone(), r.clone()
+    k10.cd64_sweeps_t(slab, xk, rk, col_sq, gram, lam1, lam2, nonneg, 2)
+    xh, rh = xs.copy(), r_np.copy()
+    col_sq_h = np.einsum("ij,ij->j", As, As, dtype=np.float64) + lam2
+    t0 = time.perf_counter()
+    require(native.cd64_sweeps(As, xh, rh, col_sq_h, lam1, lam2, nonneg, 2),
+            "native host library: no cd64_sweeps")
+    host_ms = 1e3 * (time.perf_counter() - t0)
+    err_x = close("x after two sweeps", xk[:k].cpu().numpy(), xh,
+                  max(float(np.abs(xh).max()), 1e-300))
+    err_r2 = close("r after two sweeps", rk.cpu().numpy(), rh, r_scale(xk))
+    require(bool((xk[k:] == 0).all()), "K10 moved a pad coordinate")
+
+    work = cd64_work(kp, m, B, 2)
+    xp, rp = x.clone(), r.clone()
+    runs = {
+        "cd64_sweeps_t": (
+            max(err_x, err_r2),
+            lambda: k10.cd64_sweeps_t(slab, xk, rk, col_sq, gram, lam1, lam2,
+                                      nonneg, 2),
+            lambda: k10.cd64_sweeps_t_plain(slab, xp, rp, col_sq, gram,
+                                            lam1, lam2, nonneg, 2), 10, 1),
+        "cd64_residual_t": (
+            err_r, lambda: k10.cd64_residual_t(slab, x, b_dev),
+            lambda: k10.cd64_residual_t_plain(slab, x, b_dev), 20, 3),
+        "cd64_atr_t": (
+            err_z, lambda: k10.cd64_atr_t(slab, r, x, lam2),
+            lambda: k10.cd64_atr_t_plain(slab, r, x, lam2), 20, 3)}
+    for name, (err, fn, plain, reps, plain_reps) in runs.items():
+        record(stats, name, err, time_ms(fn, reps),
+               time_ms(plain, plain_reps), None, work[name])
+    st = stats["cd64_sweeps_t"]
+    print(json.dumps({
+        "metric": f"k10_cd64_ms_{k}x{m}",
+        "k": k, "sweeps_per_launch": 2,
+        "ms": st["ms"], "ms_per_sweep": st["ms"] / 2,
+        "bound_ms": st["bound_ms"], "plain_ms": st["plain_ms"],
+        "host_ms": host_ms, "host_ms_per_sweep": host_ms / 2,
+        "residual_ms": stats["cd64_residual_t"]["ms"],
+        "atr_ms": stats["cd64_atr_t"]["ms"],
+        "plan": dataclasses.asdict(plan),
+        "gpu": card[0], "power_limit": card[1]}), flush=True)
+    log(f"# K10 vs host [headline] k={k} m={m} B={B}: ok")
 
 
 def slab_work(m: int, n: int, n_blocks: int) -> tuple[int, int]:
@@ -3566,6 +3705,8 @@ def main() -> None:
     ratio = witness_bound_check(problem, pr.x, b_np)
     log(f"# K3 witness bound at the polish residual: max err/bound "
         f"{ratio:.3e}")
+    compare_cd64(problem, res.x, np.nonzero(pr.x)[0], A_np, b_np, stats,
+                 card2)
     passes = 1.0 + 2.0 / SOLVE_KW["gap_every"]
     sweeps = res.iterations
     gb_s = 4.0 * M * N * passes * sweeps / res.wall_time_s / 1e9

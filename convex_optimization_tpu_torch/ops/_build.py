@@ -47,6 +47,7 @@ build_seconds = 0.0
 _VP = ctypes.c_void_p
 _I = ctypes.c_int
 _Fl = ctypes.c_float
+_D = ctypes.c_double
 
 
 def reset_launches() -> None:
@@ -146,6 +147,14 @@ def _declare(lib) -> None:
                                      _VP, _VP, _VP, _I, _I, _I, _I, _Fl, _Fl,
                                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                                      _VP]
+    lib.cot_cd64_plan.argtypes = [_I, _I, _I, ctypes.POINTER(_I)]
+    lib.cot_cd64_sweeps.argtypes = [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP,
+                                    _I, _I, _I, _D, _I, _I, _I, _VP]
+    lib.cot_cd64_residual_segments.argtypes = [_I, _I, ctypes.POINTER(_I)]
+    lib.cot_cd64_residual.argtypes = [_VP, _VP, _VP, _VP, _VP, _I, _I, _I,
+                                      _VP]
+    lib.cot_cd64_atr.argtypes = [_VP, _VP, _VP, _VP, _D, _VP, _I, _I, _I,
+                                 _VP]
     lib.cot_error_string.argtypes = [_I]
     lib.cot_error_string.restype = ctypes.c_char_p
     for fn in (lib.cot_sweep_check, lib.cot_sweep_t, lib.cot_sweep_slab_t,
@@ -156,7 +165,9 @@ def _declare(lib) -> None:
                lib.cot_batch_sweep_clusters, lib.cot_batch_sweep_check,
                lib.cot_batch_sweep_t,
                lib.cot_matvec_batch_plan, lib.cot_ax_minus_b_batch_t,
-               lib.cot_neg_at_r_batch_t):
+               lib.cot_neg_at_r_batch_t, lib.cot_cd64_plan,
+               lib.cot_cd64_sweeps, lib.cot_cd64_residual_segments,
+               lib.cot_cd64_residual, lib.cot_cd64_atr):
         fn.restype = _I
 
 

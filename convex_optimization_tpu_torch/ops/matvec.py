@@ -36,11 +36,12 @@ def _flat(A_t: torch.Tensor) -> torch.Tensor:
     return A_t.view(nb * B, m)
 
 
-def _check(name: str, t: torch.Tensor, shape, device) -> None:
+def _check(name: str, t: torch.Tensor, shape, device,
+           dtype: torch.dtype = torch.float32) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, A_t on {device}")
-    if tuple(t.shape) != tuple(shape) or t.dtype != torch.float32:
-        raise ValueError(f"{name}: expected float32 {tuple(shape)}, got "
+    if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype} {tuple(shape)}, got "
                          f"{t.dtype} {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")

@@ -9,7 +9,10 @@ host in float64:
      (for group_l2: the support's whole groups);
   2. cyclic f64 coordinate descent on them (``_cd64``; block coordinate
      descent over groups, ``_cd64_group``; native when the library
-     builds);
+     builds).  For l1 and nonneg_l1 on a card the columns are gathered on
+     the card and the descent and its check's exact products run there
+     (``_cd64_card``, K10 ``ops/cd64``): the route follows the problem's
+     device, and the host route stays the CPU's and the parity oracle;
   3. certify on the FULL problem with a conservative dual norm: exact f64
      on the gathered columns, the device's f32 witness plus a rounding
      margin gamma * ||A_j|| * ||r|| on every other column (for a group, the
@@ -37,6 +40,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from convex_optimization_tpu_torch.ops.cd64 import (
+    block_gram64,
+    cd64_atr_t,
+    cd64_plan,
+    cd64_residual_t,
+    cd64_sweeps_t,
+    support_slab,
+)
 from convex_optimization_tpu_torch.ops.matvec import neg_at_r_t, witness_gamma
 from convex_optimization_tpu_torch.utils import native
 from convex_optimization_tpu_torch.utils.trace import CpuSpan, span
@@ -292,8 +303,9 @@ def _cd64(As32, b, lam2, pen_s, xs, tol, max_sweeps, gap_every=2,
           rescreen: bool = True):
     """f64 cyclic coordinate descent on the compacted problem (exact
     per-column Lipschitz ||A_j||^2 + lam2; f32-stored slab, f64
-    arithmetic).  Returns (x, keep_idx, sweeps, rel_gap, gap, primal, r);
-    keep_idx maps the returned columns to the input columns.  rescreen
+    arithmetic) on the host.  Returns (x, keep_idx, sweeps, rel_gap, gap,
+    primal, r, route); keep_idx maps the returned columns to the input
+    columns, route is "native" or "numpy" (who ran the sweeps).  rescreen
     drops columns by the plain gap-safe sphere: the caller recomputes the
     full certificate, so drops never affect soundness."""
     m, width = As32.shape
@@ -306,11 +318,13 @@ def _cd64(As32, b, lam2, pen_s, xs, tol, max_sweeps, gap_every=2,
     r = np.ascontiguousarray(_residual_sparse32(As32, xs, b))
     ajbuf = np.empty(m, np.float64)
     sweeps = 0
+    route = "numpy"
     rel = gap = primal = np.inf
     while sweeps < max_sweeps:
         if native.cd64_sweeps(As32, xs, r, col_sq, float(lam1), float(lam2),
                               nonneg, gap_every):
             sweeps += gap_every
+            route = "native"
         else:
             for _ in range(gap_every):
                 for j in range(As32.shape[1]):
@@ -330,22 +344,89 @@ def _cd64(As32, b, lam2, pen_s, xs, tol, max_sweeps, gap_every=2,
                 sweeps += 1
         r = _residual_sparse32(As32, xs, b)     # exact refresh
         zs = _gemv_t_mixed(As32, r, lam2, xs)
-        gap, primal, rel, alpha = _gap_from_parts(r, b, lam2, pen_s, xs, zs)
+        gap, primal, rel, keep = _cd64_check(r, b, lam2, pen_s, xs, zs,
+                                             col_norms, tol, rescreen)
         if rel <= tol:
             break
-        if rescreen:
-            radius = np.sqrt(2.0 * max(gap, 0.0))
-            w = alpha * zs
-            drop = ((np.abs(w) + radius * col_norms < lam1)
-                    if not nonneg else (w + radius * col_norms < lam1))
-            drop &= xs == 0.0
-            if drop.any():
-                keep = ~drop
-                As32, _ = _gather_cols(As32, np.nonzero(keep)[0], As32.dtype)
-                xs = xs[keep]
-                col_sq, col_norms = col_sq[keep], col_norms[keep]
-                keep_idx = keep_idx[keep]
-    return xs, keep_idx, sweeps, rel, gap, primal, r
+        if keep is not None:
+            As32, _ = _gather_cols(As32, keep, As32.dtype)
+            xs = xs[keep]
+            col_sq, col_norms = col_sq[keep], col_norms[keep]
+            keep_idx = keep_idx[keep]
+    return xs, keep_idx, sweeps, rel, gap, primal, r, route
+
+
+def _cd64_check(r, b, lam2, pen_s, xs, zs, col_norms, tol, rescreen):
+    """The check of ``_cd64`` and ``_cd64_card`` from the exact r and
+    z_S = -A_S^T r - lam2 x: (gap, primal, rel_gap, keep).  keep lists the
+    columns to keep when the plain gap-safe sphere drops some (never one
+    whose x is nonzero), else it is None, as it is once rel_gap <= tol or
+    without ``rescreen``."""
+    gap, primal, rel, alpha = _gap_from_parts(r, b, lam2, pen_s, xs, zs)
+    if rel <= tol or not rescreen:
+        return gap, primal, rel, None
+    radius = np.sqrt(2.0 * max(gap, 0.0))
+    w = alpha * zs
+    if pen_s.kind == "l1":
+        w = np.abs(w)
+    drop = (w + radius * col_norms < pen_s.lam1) & (xs == 0.0)
+    return gap, primal, rel, (np.nonzero(~drop)[0] if drop.any() else None)
+
+
+def _cd64_card(slab, B, b, lam2, pen_s, xs, tol, max_sweeps, gap_every=2,
+               rescreen: bool = True):
+    """``_cd64`` on the slab's device: K10's sweeps (``ops/cd64``) over the
+    support slab (the len(xs) columns of A as the rows of ``slab``,
+    zero-padded to a multiple of the block width B), the check's exact f64
+    refresh r = A_S x - b and z_S = -A_S^T r - lam2 x there too.  The gap
+    and the rescreen's decision are _cd64's, on the host, from r, z_S and
+    x (one transfer a check); a rescreen compacts the slab on the device.
+    Returns _cd64's tuple, route "card"."""
+    dev = slab.device
+    f64 = torch.float64
+    m, k = len(b), len(xs)
+    xs = np.asarray(xs, np.float64)
+    b_dev = torch.from_numpy(b).to(dev)
+    lam1 = float(pen_s.lam1)
+    nonneg = pen_s.kind == "nonneg_l1"
+    keep_idx = np.arange(k)
+    gram = block_gram64(slab, B)
+    col_sq = torch.diagonal(gram, dim1=1, dim2=2).reshape(-1) + lam2
+    col_sq[k:] = 1.0
+    col_norms = np.sqrt(col_sq[:k].cpu().numpy())
+    x = torch.zeros((slab.shape[0],), dtype=f64, device=dev)
+    x[:k] = torch.from_numpy(xs).to(dev)
+    r_dev = cd64_residual_t(slab, x, b_dev)
+    r = None
+    sweeps = 0
+    rel = gap = primal = np.inf
+    while sweeps < max_sweeps:
+        cd64_sweeps_t(slab, x, r_dev, col_sq, gram, lam1, lam2, nonneg,
+                      gap_every)
+        sweeps += gap_every
+        r_dev = cd64_residual_t(slab, x, b_dev)       # exact refresh
+        zs_dev = cd64_atr_t(slab, r_dev, x, lam2)[:k]
+        packed = torch.cat([r_dev, zs_dev, x[:k]]).cpu().numpy()
+        r, zs, xs = packed[:m], packed[m:m + k], packed[m + k:]
+        gap, primal, rel, keep = _cd64_check(r, b, lam2, pen_s, xs, zs,
+                                             col_norms, tol, rescreen)
+        if rel <= tol:
+            break
+        if keep is not None:
+            keep_t = torch.as_tensor(keep, device=dev)
+            slab = support_slab(slab, keep_t, B)
+            gram = block_gram64(slab, B)
+            cs = torch.ones((slab.shape[0],), dtype=f64, device=dev)
+            cs[:len(keep)] = col_sq[keep_t]
+            col_sq = cs
+            xk = torch.zeros_like(col_sq)
+            xk[:len(keep)] = x[keep_t]
+            x = xk
+            xs, col_norms = xs[keep], col_norms[keep]
+            keep_idx = keep_idx[keep]
+            k = len(keep)
+            # the dropped coordinates were zero: r is unchanged
+    return xs, keep_idx, sweeps, rel, gap, primal, r, "card"
 
 
 def _cd64_group(As32, b, lam2, pen_s, xs, tol, max_sweeps, gap_every=2,
@@ -480,9 +561,10 @@ def polish_support(problem, x, *, tol: float = 1e-6,
     transfers.  ``x`` may be a tensor or an array.  group_l2 goes to
     ``_polish_support_group``.  The call is the span ``cot.polish``, its
     stages the spans ``cot.polish.setup`` and, in each expansion round
-    (``cot.polish.round``), ``.gather``, ``.cd64``, ``.witness`` and
-    ``.near``; ``verbose=True`` prints each stage's wall, CPU seconds and
-    minor faults."""
+    (``cot.polish.round``), ``.gather``, ``.cd64`` (its sweeps, columns and
+    route: "card", "native" or "numpy"), ``.witness`` and ``.near``;
+    ``verbose=True`` prints each stage's wall, CPU seconds and minor
+    faults."""
     kind = problem.penalty.kind
     if kind not in ("l1", "nonneg_l1", "group_l2"):
         return polish_fast(problem, x, tol=tol, max_iters=max_iters,
@@ -497,6 +579,16 @@ def polish_support(problem, x, *, tol: float = 1e-6,
     return pr._replace(wall_time_s=whole.seconds)
 
 
+def _card_plan(problem):
+    """The route of the support's CD and exact products: K10's plan when
+    the problem lives on a card (the CD on the slab gathered there;
+    ``cd64_plan`` raises where no layout fits m), None for the host route
+    of a CPU problem (native, else NumPy)."""
+    if problem.device.type != "cuda":
+        return None
+    return cd64_plan(problem.device, problem.m)
+
+
 def _polish_support_sep(problem, x, *, tol, max_iters, gap_every, A_host,
                         b_host, max_expand,
                         verbose) -> tuple[PolishResult, int]:
@@ -506,11 +598,26 @@ def _polish_support_sep(problem, x, *, tol, max_iters, gap_every, A_host,
     m, n = problem.m, problem.n
     lam1 = float(problem.penalty.lam1)
     lam2 = float(problem.lam2)
+    dev = problem.device
+    plan = _card_plan(problem)
 
     def columns(idx):
         if A_host is None:
             return _device_columns(problem, idx), "device"
         return _gather_cols(A_host, idx, np.float32)
+
+    def exact_z(idx, r, As=None, x=None):
+        """z = -(A_idx^T r) - lam2 x (x None: no lam2 term) in f64: on the
+        card from A's rows, else from the host columns As."""
+        if plan is None:
+            if As is None:
+                As, _ = columns(idx)
+            return _gemv_t_mixed(As, r, lam2 if x is not None else 0.0, x)
+        return cd64_atr_t(
+            problem.A_rows, torch.from_numpy(r).to(dev),
+            None if x is None else torch.from_numpy(x).to(dev),
+            lam2 if x is not None else 0.0,
+            idx=torch.as_tensor(idx, device=dev)).cpu().numpy()
 
     with _stage("cot.polish.setup", verbose):
         b = np.asarray(problem.b.cpu().numpy() if b_host is None
@@ -534,16 +641,28 @@ def _polish_support_sep(problem, x, *, tol, max_iters, gap_every, A_host,
         with span("cot.polish.round", index=_round):
             with _stage("cot.polish.gather", verbose,
                         columns=len(S)) as st:
-                As, path = columns(S)
+                if plan is None:
+                    As, path = columns(S)
+                else:
+                    As = support_slab(problem.A_rows,
+                                      torch.as_tensor(S, device=dev), plan.B)
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+                    path = "card"
                 st.set(bytes=int(As.nbytes), source=path)
             gather_s += st.seconds
             S_full = S
             pen_s = _NpPenalty(kind, lam1)
             with _stage("cot.polish.cd64", verbose) as st:
                 xs = x_np[S]
-                xs, sub_idx, k, _, _, _, r = _cd64(
-                    As, b, lam2, pen_s, xs, tol * 0.5, max_iters)
-                st.set(sweeps=k)
+                if plan is None:
+                    xs, sub_idx, k, _, _, _, r, route = _cd64(
+                        As, b, lam2, pen_s, xs, tol * 0.5, max_iters)
+                else:
+                    xs, sub_idx, k, _, _, _, r, route = _cd64_card(
+                        As, plan.B, b, lam2, pen_s, xs, tol * 0.5,
+                        max_iters)
+                st.set(sweeps=k, route=route, columns=len(S))
             S = S[sub_idx]
 
             # full-problem certificate: f32 K3 witness + margin
@@ -562,7 +681,7 @@ def _polish_support_sep(problem, x, *, tol, max_iters, gap_every, A_host,
                       else np.maximum(z_f32 + margin, 0.0))
                 x_sf = np.zeros(len(S_full), np.float64)
                 x_sf[sub_idx] = xs
-                z_S = _gemv_t_mixed(As, r, lam2, x_sf)
+                z_S = exact_z(S_full, r, As, x_sf)
                 ub[S_full] = (np.abs(z_S) if kind == "l1"
                               else np.maximum(z_S, 0.0))
 
@@ -590,8 +709,7 @@ def _polish_support_sep(problem, x, *, tol, max_iters, gap_every, A_host,
                 if len(near):
                     with _stage("cot.polish.near", verbose,
                                 columns=len(near)):
-                        A_near, _ = columns(near)
-                        z_near = _gemv_t_mixed(A_near, r)
+                        z_near = exact_z(near, r)
                         ub[near] = (np.abs(z_near) if kind == "l1"
                                     else np.maximum(z_near, 0.0))
                         rel, gap, primal = certify(ub)

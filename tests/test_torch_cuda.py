@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K9) against their plain PyTorch versions
+"""The port's CUDA kernels (K1-K10) against their plain PyTorch versions
 on the card, and the column-sharded solvers as two gloo ranks sharing it.
 Every test needs a CUDA card and skips without one.  This file imports
 neither jax nor the JAX package, so it runs on a machine without
@@ -26,7 +26,12 @@ iterates) and step counts within one check.  The working-set solves:
 the same rounds, working sets within one bucket (a column at its
 screen's threshold), the same support after the polish; ADMM, whose
 balancing of rho is a discrete decision that one rounding can flip: both
-certified after the polish with the same support.
+certified after the polish with the same support.  K10, the polish's
+f64 CD on the support gathered on the card, against the host ``_cd64`` on
+the same columns (sums in another order, in f64): x to 1e-10 relative at
+equal sweeps, the same keep_idx, sweeps within one check; its kernels give
+the same bits on two launches; ``polish_support``'s card and host routes
+keep the same columns and certify with gaps within 1e-9.
 """
 
 import dataclasses
@@ -1370,3 +1375,269 @@ def test_polish_fast_device_variant_matches_host_variant(cuda):
     np.testing.assert_array_equal(host.x != 0, dev.x != 0)
     np.testing.assert_allclose(dev.x, host.x, rtol=0, atol=1e-7)
     assert dev.kept >= host.kept
+
+
+# ------------------------------------------------- K10: the polish's CD ----
+
+def _cd_case(m, n, kind, lam2, lam_frac=0.1, seed=0):
+    """A unit-column f32 A (F-ordered), b (f64) and lam1 for the polish's
+    CD on the support; nonneg_l1 plants a nonnegative x."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((m, n)).astype(np.float32)
+    A = np.asfortranarray(A / np.linalg.norm(A, axis=0))
+    xt = np.where(rng.random(n) < 0.1, rng.standard_normal(n), 0.0)
+    if kind == "nonneg_l1":
+        xt = np.abs(xt)
+    b = A.astype(np.float64) @ xt + 0.01 * rng.standard_normal(m)
+    atb = A.T.astype(np.float64) @ b
+    lam1 = lam_frac * (atb.max() if kind == "nonneg_l1"
+                       else np.abs(atb).max())
+    return A, b, float(lam1)
+
+
+#: (m, n, kind, lam2, lam_frac, support): k = 200 (not a multiple of the
+#: block), the nonneg prox with lam2, the scalar instance (m % 4 != 0), a
+#: support of one column, every column (the rescreen drops many mid-run)
+#: and the headline's m (132 CTAs, B = 128)
+CD_CASES = {
+    "l1": (256, 600, "l1", 0.0, 0.1, "third"),
+    "nonneg_l1": (256, 600, "nonneg_l1", 1e-3, 0.1, "third"),
+    "ragged_m": (201, 600, "l1", 0.0, 0.1, "third"),
+    "one_column": (256, 600, "l1", 0.0, 0.1, "one"),
+    "rescreen": (256, 600, "nonneg_l1", 1e-3, 0.3, "all"),
+    "headline_m": (10_000, 1500, "l1", 0.0, 0.1, "all"),
+}
+
+
+def _cd_inputs(name, cuda):
+    from convex_optimization_tpu_torch.ops.cd64 import cd64_plan, support_slab
+    from convex_optimization_tpu_torch.solvers.polish import _NpPenalty
+
+    m, n, kind, lam2, frac, support = CD_CASES[name]
+    A, b, lam1 = _cd_case(m, n, kind, lam2, frac)
+    S = {"third": np.arange(0, n, 3), "all": np.arange(n),
+         "one": np.array([int(np.argmax(np.abs(A.T @ b)))])}[support]
+    B = cd64_plan(cuda, m).B
+    rows = torch.from_numpy(np.ascontiguousarray(A.T)).to(cuda)
+    slab = support_slab(rows, torch.as_tensor(S, device=cuda), B)
+    As = np.asfortranarray(A[:, S])
+    return (As, slab, B, b, lam2, _NpPenalty(kind, lam1),
+            np.zeros(len(S)))
+
+
+def _cd_both(name, cuda, tol, max_sweeps):
+    from convex_optimization_tpu_torch.solvers.polish import _cd64, _cd64_card
+
+    As, slab, B, b, lam2, pen, x0 = _cd_inputs(name, cuda)
+    host = _cd64(As, b, lam2, pen, x0, tol, max_sweeps)
+    card = _cd64_card(slab, B, b, lam2, pen, x0, tol, max_sweeps)
+    return host, card, len(x0)
+
+
+def _close_x(a, b):
+    scale = max(float(np.abs(b).max()), 1e-300)
+    assert float(np.abs(a - b).max()) <= 1e-10 * scale
+
+
+def _gap_x_bound(As, keep, lam2, gaps):
+    """||x_a - x_b||_2 that two points of gaps ``gaps`` may be apart on the
+    columns ``keep``: the objective there is mu-strongly convex, mu the
+    least eigenvalue of A_K^T A_K + lam2, so each lies within
+    sqrt(2 gap / mu) of the one minimizer."""
+    A_K = As[:, keep].astype(np.float64)
+    mu = float(np.linalg.eigvalsh(A_K.T @ A_K)[0]) + lam2
+    assert mu > 0.0
+    return sum(np.sqrt(2.0 * max(g, 0.0) / mu) for g in gaps)
+
+
+@pytest.mark.parametrize("name", list(CD_CASES))
+def test_cd64_kernel_matches_host_cd_to_tolerance(cuda, name):
+    """K10's CD (``_cd64_card``) against the host ``_cd64`` on the same
+    gathered columns, run to a 1e-10 gap: the same keep_idx, sweeps within
+    one check, x within what the two gaps allow (``_gap_x_bound``), and at
+    equal sweeps x to 1e-10 relative."""
+    As, slab, B, b, lam2, pen, x0 = _cd_inputs(name, cuda)
+    from convex_optimization_tpu_torch.solvers.polish import _cd64, _cd64_card
+
+    host = _cd64(As, b, lam2, pen, x0, 1e-10, 4000)
+    card = _cd64_card(slab, B, b, lam2, pen, x0, 1e-10, 4000)
+    k = len(x0)
+    assert card[7] == "card" and host[7] in ("native", "numpy")
+    np.testing.assert_array_equal(card[1], host[1])
+    assert abs(card[2] - host[2]) <= 2
+    assert card[3] <= 1e-10 and host[3] <= 1e-10
+    bound = _gap_x_bound(As, host[1], lam2, (card[4], host[4]))
+    assert float(np.linalg.norm(card[0] - host[0])) <= bound
+    if card[2] == host[2]:
+        _close_x(card[0], host[0])
+    if name == "rescreen":
+        assert len(card[1]) < k        # columns dropped mid-run
+
+
+@pytest.mark.parametrize("name", list(CD_CASES))
+def test_cd64_kernel_matches_host_cd_sweep_for_sweep(cuda, name):
+    """Eight sweeps each (tol 0: no early stop but at a zero gap, which one
+    column reaches in its first check; the rescreen at every check): the
+    same sweeps and keep_idx, x to 1e-10 relative, r to 1e-10 of its
+    size."""
+    host, card, _ = _cd_both(name, cuda, 0.0, 8)
+    assert card[2] == host[2] == (2 if name == "one_column" else 8)
+    np.testing.assert_array_equal(card[1], host[1])
+    _close_x(card[0], host[0])
+    _close_x(card[6], host[6])
+
+
+@pytest.mark.parametrize("name", ["l1", "ragged_m", "headline_m"])
+def test_cd64_kernels_are_deterministic(cuda, name):
+    """Two launches of K10 from the same x and r, and the check's two
+    products twice: the same bits."""
+    from convex_optimization_tpu_torch.ops.cd64 import (
+        block_gram64,
+        cd64_atr_t,
+        cd64_residual_t,
+        cd64_sweeps_t,
+    )
+
+    As, slab, B, b, lam2, pen, x0 = _cd_inputs(name, cuda)
+    gram = block_gram64(slab, B)
+    col_sq = torch.diagonal(gram, dim1=1, dim2=2).reshape(-1) + lam2
+    col_sq[len(x0):] = 1.0
+    x_start = torch.zeros((slab.shape[0],), dtype=torch.float64, device=cuda)
+    b_dev = torch.from_numpy(b).to(cuda)
+    outs = []
+    for _ in range(2):
+        x = x_start.clone()
+        r = cd64_residual_t(slab, x, b_dev)
+        cd64_sweeps_t(slab, x, r, col_sq, gram, pen.lam1, lam2,
+                      pen.kind == "nonneg_l1", 3)
+        outs.append((x, r, cd64_residual_t(slab, x, b_dev),
+                     cd64_atr_t(slab, r, x, lam2)))
+    torch.cuda.synchronize()
+    for a, b_ in zip(*outs):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("m", [256, 201])
+def test_cd64_check_kernels_match_plain(cuda, m):
+    """The check's f64 products against their plain versions, from a slab
+    and through an index into A's rows: to 1e-12 of the sums of |terms|."""
+    from convex_optimization_tpu_torch.ops.cd64 import (
+        cd64_atr_t,
+        cd64_atr_t_plain,
+        cd64_residual_t,
+        cd64_residual_t_plain,
+    )
+
+    rng = np.random.default_rng(1)
+    A = torch.from_numpy(rng.standard_normal((700, m)).astype(np.float32))
+    x = torch.from_numpy(np.where(rng.random(700) < 0.3,
+                                  rng.standard_normal(700), 0.0))
+    b = torch.from_numpy(rng.standard_normal(m))
+    idx = torch.from_numpy(rng.permutation(700)[:300])
+    Ad, xd, bd, idd = (t.to(cuda) for t in (A, x, b, idx))
+    r = cd64_residual_t(Ad, xd, bd)
+    r_ref = cd64_residual_t_plain(A, x, b)
+    scale = (A.double().abs().T @ x.abs()) + b.abs()
+    assert bool(((r.cpu() - r_ref).abs() <= 1e-12 * scale).all())
+    for ix in (None, idd):
+        xs = None if ix is None else xd[ix]
+        z = cd64_atr_t(Ad, r, xs, 1e-3, idx=ix).cpu()
+        z_ref = cd64_atr_t_plain(A, r.cpu(), None if xs is None else
+                                 xs.cpu(), 1e-3,
+                                 idx=None if ix is None else idx)
+        rows = A if ix is None else A[idx]
+        zscale = rows.double().abs() @ r.cpu().abs() + 1e-3
+        assert bool(((z - z_ref).abs() <= 1e-12 * zscale).all())
+
+
+def test_cd64_wrappers_count_launches(cuda):
+    from convex_optimization_tpu_torch.ops.cd64 import (
+        block_gram64,
+        cd64_atr_t,
+        cd64_residual_t,
+        cd64_sweeps_t,
+    )
+
+    As, slab, B, b, lam2, pen, x0 = _cd_inputs("l1", cuda)
+    gram = block_gram64(slab, B)
+    col_sq = torch.ones((slab.shape[0],), dtype=torch.float64, device=cuda)
+    x = torch.zeros_like(col_sq)
+    before = dict(_build.launches)
+    r = cd64_residual_t(slab, x, torch.from_numpy(b).to(cuda))
+    cd64_sweeps_t(slab, x, r, col_sq, gram, pen.lam1, 0.0, False, 2)
+    cd64_atr_t(slab, r, x, 0.0)
+    for name in ("cd64_residual_t", "cd64_sweeps_t", "cd64_atr_t"):
+        assert _build.launches[name] == before.get(name, 0) + 1
+    with pytest.raises(ValueError):
+        cd64_sweeps_t(slab, x.float(), r, col_sq, gram, 1.0, 0.0, False, 2)
+    with pytest.raises(ValueError):
+        cd64_sweeps_t(slab[:-1], x[:-1], r, col_sq[:-1], gram, 1.0, 0.0,
+                      False, 2)
+
+
+def test_cd64_plan_refuses_an_m_no_layout_fits(cuda):
+    """Past the m whose slice of r no layout holds, K10's plan raises, and
+    so does the card route of the polish: it never falls back to the
+    host for a problem on the card."""
+    import types
+
+    from convex_optimization_tpu_torch.ops.cd64 import cd64_plan
+    from convex_optimization_tpu_torch.solvers.polish import _card_plan
+
+    m = 700_000
+    with pytest.raises(ValueError, match=f"m = {m}"):
+        cd64_plan(cuda, m)
+    with pytest.raises(ValueError, match=f"m = {m}"):
+        _card_plan(types.SimpleNamespace(device=cuda, m=m))
+    assert cd64_plan(cuda, 10_000).B == 128
+
+
+def _polish_routes(problem, x, monkeypatch):
+    """polish_support on the card route and on the host route (the plan
+    forced to None), each with the route its cd64 span read."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import convex_optimization_tpu_torch as cot
+    from convex_optimization_tpu_torch.solvers import polish
+    from convex_optimization_tpu_torch.utils import trace
+
+    out = []
+    for force_host in (False, True):
+        if force_host:
+            monkeypatch.setattr(polish, "_card_plan", lambda p: None)
+        with profile(activities=[ProfilerActivity.CPU]):
+            pr = cot.polish_support(problem, x, tol=1e-6)
+        spans = [s for s in trace.RECORDER.records(trace.RECORDER.session)
+                 if s["name"] == "cot.polish.cd64"]
+        out.append((pr, {s["attrs"]["route"] for s in spans}))
+    monkeypatch.undo()
+    return out
+
+
+@pytest.mark.parametrize("kind,lam2", [("l1", 0.0), ("nonneg_l1", 1e-3)])
+def test_polish_support_card_route_matches_host_route(cuda, monkeypatch,
+                                                      kind, lam2):
+    """Config 1's size (500 x 2000) solved on the card, then polished on
+    the card route (K10, the slab gathered on the card) and on the host
+    route: the same kept columns, both certified <= 1e-6, gaps within
+    1e-9, and K10 launched only on the card route."""
+    import convex_optimization_tpu_torch as cot
+    from convex_optimization_tpu_torch.core.datagen import (
+        make_lasso_instance_host,
+    )
+
+    inst, A, b = make_lasso_instance_host(0, 500, 2000, penalty_kind=kind,
+                                          lam2=lam2, device=cuda)
+    res = cot.solve(inst.problem, "bcd_pallas", tol=1e-6, max_iters=20_000,
+                    stall_checks=15)
+    _build.reset_launches()
+    (card, card_route), (host, host_route) = _polish_routes(
+        inst.problem, res.x, monkeypatch)
+    assert card_route == {"card"} and host_route <= {"native", "numpy"}
+    assert _build.launches["cd64_sweeps_t"] > 0
+    assert card.kept == host.kept
+    assert card.rel_gap <= 1e-6 and host.rel_gap <= 1e-6
+    assert abs(card.gap - host.gap) <= 1e-9
+    gap = cot.duality_gap(inst.problem, torch.from_numpy(card.x).to(cuda),
+                          precise=True)
+    assert float(gap.rel_gap) <= 1e-6
