@@ -5,20 +5,19 @@ Counterpart of ``polish_support`` and ``_polish_support_group`` in
 relative-gap floor of a few 1e-6; to certify 1e-6 the solve finishes on the
 host in float64:
 
-  1. restrict to the f32 solution's support S and gather those columns
-     (for group_l2: the support's whole groups);
-  2. cyclic f64 coordinate descent on them (``_cd64``; block coordinate
-     descent over groups, ``_cd64_group``; native when the library
-     builds).  For l1 and nonneg_l1 on a card the columns are gathered on
-     the card and the descent and its check's exact products run there
-     (``_cd64_card``, K10 ``ops/cd64``): the route follows the problem's
+  1. restrict to the f32 solution's support S, of columns or for group_l2
+     of whole groups (the unit, ``_Unit``), and gather its columns;
+  2. cyclic f64 coordinate descent on them (``_cd64``, over groups
+     ``_cd64_group``; native when the library builds), or for l1 and
+     nonneg_l1 on a card, on the columns gathered there (``_cd64_card``,
+     K10 ``ops/cd64``): ``_executor`` picks the route from the problem's
      device, and the host route stays the CPU's and the parity oracle;
   3. certify on the FULL problem with a conservative dual norm: exact f64
      on the gathered columns, the device's f32 witness plus a rounding
      margin gamma * ||A_j|| * ||r|| on every other column (for a group, the
      norm of those per-column bounds).  The margin can only inflate the
      gap, so a certificate that passes is sound;
-  4. if it misses tol, refine near-boundary columns exactly, then expand S
+  4. if it misses tol, refine near-boundary units exactly, then expand S
      and repeat.
 
 The device witness is K3 (``ops/matvec.neg_at_r_t``), and gamma comes from
@@ -32,6 +31,7 @@ package imports jax, which the port may not).
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import sys
 import time
@@ -131,10 +131,12 @@ class _NpPenalty:
                                 self.w[gkeep])
 
 
-def _gap_from_parts(r, b, lam2, pen, x, z):
+def _gap_from_parts(r, b, lam2, pen, x, z=None, feas=None):
     """(gap, primal, rel_gap, alpha) in f64 from precomputed r and z, with
-    the optimal feasible scaling alpha on the residual ray."""
-    feas = 1.0 / max(float(pen.dual_norm(z)), 1e-300)
+    the optimal feasible scaling alpha on the residual ray, capped by
+    ``feas`` (default 1 / the dual norm of z)."""
+    if feas is None:
+        feas = 1.0 / max(float(pen.dual_norm(z)), 1e-300)
     aug = float(r @ r + lam2 * (x @ x))
     alpha = min(max(float(-(r @ b)) / max(aug, 1e-300), 0.0), feas)
     primal = 0.5 * aug + float(pen.value(x))
@@ -435,9 +437,9 @@ def _cd64_group(As32, b, lam2, pen_s, xs, tol, max_sweeps, gap_every=2,
     group-lasso problem: one prox-gradient step per group per visit with
     the group's own Lipschitz constant (an 8-step f32-data power
     iteration, inflated 2 %), Gauss-Seidel residual updates, the slab kept
-    f32 and each group read in f64.  Returns the same tuple as ``_cd64``;
-    rescreen drops whole zero groups by the gap-safe group sphere (sound:
-    the caller recomputes the full certificate)."""
+    f32 and each group read in f64.  Returns ``_cd64``'s tuple, route
+    "native" or "numpy"; rescreen drops whole zero groups by the gap-safe
+    group sphere (sound: the caller recomputes the full certificate)."""
     m, width = As32.shape
     ng = pen_s.ngroups
     gsize = width // ng
@@ -463,6 +465,7 @@ def _cd64_group(As32, b, lam2, pen_s, xs, tol, max_sweeps, gap_every=2,
     L = np.maximum(L, 1e-30)
     gbuf = np.empty((m, gsize), np.float64, order="F")
     sweeps = 0
+    route = "numpy"
     rel = gap = primal = np.inf
     prev_primal = np.inf
     while sweeps < max_sweeps:
@@ -470,6 +473,7 @@ def _cd64_group(As32, b, lam2, pen_s, xs, tol, max_sweeps, gap_every=2,
                                     np.ascontiguousarray(L), w,
                                     float(lam1), float(lam2), gap_every):
             sweeps += gap_every
+            route = "native"
         else:
             for _ in range(gap_every):
                 for g in range(ng):
@@ -515,7 +519,7 @@ def _cd64_group(As32, b, lam2, pen_s, xs, tol, max_sweeps, gap_every=2,
                 ng = int(gkeep.sum())
                 pen_s = _NpPenalty("group_l2", lam1, ng, w)
                 # dropped groups were identically 0: r is unchanged
-    return xs, keep_idx, sweeps, rel, gap, primal, r
+    return xs, keep_idx, sweeps, rel, gap, primal, r, route
 
 
 @contextlib.contextmanager
@@ -556,27 +560,71 @@ def polish_support(problem, x, *, tol: float = 1e-6,
                    b_host: np.ndarray | None = None,
                    max_expand: int = 3, verbose: bool = False) -> PolishResult:
     """Support-restricted f64 refinement certified on the full problem
-    (module docstring).  ``A_host``/``b_host``: host copies of the data
-    (A column-major f32), so columns are gathered without device
-    transfers.  ``x`` may be a tensor or an array.  group_l2 goes to
-    ``_polish_support_group``.  The call is the span ``cot.polish``, its
-    stages the spans ``cot.polish.setup`` and, in each expansion round
-    (``cot.polish.round``), ``.gather``, ``.cd64`` (its sweeps, columns and
-    route: "card", "native" or "numpy"), ``.witness`` and ``.near``;
-    ``verbose=True`` prints each stage's wall, CPU seconds and minor
-    faults."""
-    kind = problem.penalty.kind
-    if kind not in ("l1", "nonneg_l1", "group_l2"):
+    (module docstring), over a ``_Unit``, on ``_executor``'s route.
+    ``A_host``/``b_host``: host copies of the data (A column-major f32),
+    so columns are gathered without device transfers.  ``x`` may be a
+    tensor or an array.  The call is the span ``cot.polish``, its stages
+    the spans ``cot.polish.setup`` and, in each expansion round
+    (``cot.polish.round``), ``.gather``, ``.cd64`` (sweeps, route "card",
+    "native" or "numpy", columns gathered, kept), ``.witness`` and
+    ``.near``; ``verbose=True`` prints each stage's wall, CPU seconds and
+    minor faults."""
+    if problem.penalty.kind not in ("l1", "nonneg_l1", "group_l2"):
         return polish_fast(problem, x, tol=tol, max_iters=max_iters,
                            gap_every=gap_every, A_host=A_host, b_host=b_host)
-    run = (_polish_support_group if kind == "group_l2"
-           else _polish_support_sep)
     with span("cot.polish") as whole:
-        pr, rounds = run(problem, x, tol=tol, max_iters=max_iters,
-                         gap_every=gap_every, A_host=A_host, b_host=b_host,
-                         max_expand=max_expand, verbose=verbose)
+        pr, rounds = _polish_rounds(problem, x, tol, max_iters, gap_every,
+                                    A_host, b_host, max_expand, verbose)
     whole.set(kept=pr.kept, rounds=rounds)
     return pr._replace(wall_time_s=whole.seconds)
+
+
+class _Unit:
+    """The support polish's unit, from the penalty's kind: a column (l1,
+    nonneg_l1; its scale lam1) or a group (group_l2; its scale lam1 w_g,
+    its bound the norm of its columns' bounds |z_j| + gamma ||A_j|| ||r||
+    >= ||z_g||)."""
+
+    def __init__(self, pen: _NpPenalty, n: int):
+        self.pen, self.lam1 = pen, pen.lam1
+        self.grouped = pen.kind == "group_l2"
+        self.gsize = n // pen.ngroups if self.grouped else 1
+        self.near_cap = 64 if self.grouped else 8192
+        self.w = pen.w if self.grouped else 1.0   # the scale is lam1 * w
+
+    def support(self, x):
+        return np.nonzero(x.reshape(-1, self.gsize).any(axis=1))[0]
+
+    def cols(self, units):
+        return (units[:, None] * self.gsize
+                + np.arange(self.gsize)[None, :]).reshape(-1)
+
+    def penalty(self, units):
+        if self.grouped:
+            return _NpPenalty("group_l2", self.lam1, len(units),
+                              self.w[units])
+        return self.pen
+
+    def bound(self, z, err):
+        """Per-unit bounds of the dual norm's terms from z and its error."""
+        zb = (np.maximum(z + err, 0.0) if self.pen.kind == "nonneg_l1"
+              else np.abs(z) + err)
+        if self.grouped:
+            return np.sqrt((zb ** 2).reshape(-1, self.gsize).sum(axis=1))
+        return zb
+
+    def kept(self, units, sub_idx):
+        """(the units the next round grows from, their positions among the
+        gathered columns): the CD's dropped columns leave, groups stay."""
+        return (units, slice(None)) if self.grouped \
+            else (units[sub_idx], sub_idx)
+
+    def pick(self, cand, ub_w, k):
+        # no unit violates: the k of the largest ub / w, or (the JAX
+        # package's group rule) the k // 2 lowest-numbered groups
+        if self.grouped:
+            return cand[:max(k // 2, 1)]
+        return cand[np.argsort(-ub_w[cand])[:k]]
 
 
 def _card_plan(problem):
@@ -589,285 +637,136 @@ def _card_plan(problem):
     return cd64_plan(problem.device, problem.m)
 
 
-def _polish_support_sep(problem, x, *, tol, max_iters, gap_every, A_host,
-                        b_host, max_expand,
-                        verbose) -> tuple[PolishResult, int]:
-    """``polish_support`` for l1 and nonneg_l1: (the result with its wall
-    left to the caller, the rounds run)."""
-    kind = problem.penalty.kind
-    m, n = problem.m, problem.n
-    lam1 = float(problem.penalty.lam1)
-    lam2 = float(problem.lam2)
+def _executor(problem, unit, A_host, lam2, gap_every):
+    """(gather(cols) -> (A's columns or their slab, source), cd(_cd64's
+    arguments) -> its tuple, exact_z(cols, r, As=None, x=None) -> f64
+    -(A^T r) - lam2 x), chosen once per call: on the card for l1 and
+    nonneg_l1 on a CUDA problem (``_card_plan``), else on the host."""
     dev = problem.device
-    plan = _card_plan(problem)
+    plan = None if unit.grouped else _card_plan(problem)
+    if plan is not None:
+        def gather(idx):
+            slab = support_slab(problem.A_rows,
+                                torch.as_tensor(idx, device=dev), plan.B)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            return slab, "card"
 
-    def columns(idx):
+        def exact_z(idx, r, As=None, x=None):
+            return cd64_atr_t(
+                problem.A_rows, torch.from_numpy(r).to(dev),
+                None if x is None else torch.from_numpy(x).to(dev),
+                lam2 if x is not None else 0.0,
+                idx=torch.as_tensor(idx, device=dev)).cpu().numpy()
+
+        return gather, lambda As, *a: _cd64_card(As, plan.B, *a), exact_z
+
+    def gather(idx):
         if A_host is None:
             return _device_columns(problem, idx), "device"
         return _gather_cols(A_host, idx, np.float32)
 
     def exact_z(idx, r, As=None, x=None):
-        """z = -(A_idx^T r) - lam2 x (x None: no lam2 term) in f64: on the
-        card from A's rows, else from the host columns As."""
-        if plan is None:
-            if As is None:
-                As, _ = columns(idx)
-            return _gemv_t_mixed(As, r, lam2 if x is not None else 0.0, x)
-        return cd64_atr_t(
-            problem.A_rows, torch.from_numpy(r).to(dev),
-            None if x is None else torch.from_numpy(x).to(dev),
-            lam2 if x is not None else 0.0,
-            idx=torch.as_tensor(idx, device=dev)).cpu().numpy()
+        if As is None:
+            As, _ = gather(idx)
+        return _gemv_t_mixed(As, r, lam2 if x is not None else 0.0, x)
 
+    # the separable CD checks every 2 sweeps, as the JAX package's does
+    return gather, (functools.partial(_cd64_group, gap_every=gap_every)
+                    if unit.grouped else _cd64), exact_z
+
+
+def _polish_rounds(problem, x, tol, max_iters, gap_every, A_host, b_host,
+                   max_expand, verbose) -> tuple[PolishResult, int]:
+    """The rounds of ``polish_support``: (the result with its wall left to
+    the caller, the rounds run)."""
+    n, dev = problem.n, problem.device
     with _stage("cot.polish.setup", verbose):
-        b = np.asarray(problem.b.cpu().numpy() if b_host is None
-                       else b_host, dtype=np.float64)
-        x_np = (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
-                else np.asarray(x)).astype(np.float64)
-        S = np.nonzero(x_np)[0]
-        if len(S) == 0:
-            S = np.array([0])
+        lam1, lam2, pen, x_np, b = _host_inputs(problem, x, b_host)
+        unit = _Unit(pen, n)
+        w = unit.w
+        gather, cd, exact_z = _executor(problem, unit, A_host, lam2,
+                                        gap_every)
+        U = unit.support(x_np) if x_np.any() else np.array([0])
         eps = float(np.finfo(np.float32).eps)
-        gamma = witness_gamma(m)
-        cn_safe = _col_norms64(problem) * (1.0 + 4 * eps) + 1e-12
-        zeros_n = torch.zeros((n,), dtype=torch.float32,
-                              device=problem.device)
+        gamma_cn = witness_gamma(problem.m) * (
+            _col_norms64(problem) * (1.0 + 4 * eps) + 1e-12)
+        zeros_n = torch.zeros((n,), dtype=torch.float32, device=dev)
 
-    best = None
-    gather_s = 0.0
-    rounds = 0
-    for _round in range(max_expand + 1):
-        rounds += 1
-        with span("cot.polish.round", index=_round):
-            with _stage("cot.polish.gather", verbose,
-                        columns=len(S)) as st:
-                if plan is None:
-                    As, path = columns(S)
-                else:
-                    As = support_slab(problem.A_rows,
-                                      torch.as_tensor(S, device=dev), plan.B)
-                    if dev.type == "cuda":
-                        torch.cuda.synchronize(dev)
-                    path = "card"
-                st.set(bytes=int(As.nbytes), source=path)
-            gather_s += st.seconds
-            S_full = S
-            pen_s = _NpPenalty(kind, lam1)
-            with _stage("cot.polish.cd64", verbose) as st:
-                xs = x_np[S]
-                if plan is None:
-                    xs, sub_idx, k, _, _, _, r, route = _cd64(
-                        As, b, lam2, pen_s, xs, tol * 0.5, max_iters)
-                else:
-                    xs, sub_idx, k, _, _, _, r, route = _cd64_card(
-                        As, plan.B, b, lam2, pen_s, xs, tol * 0.5,
-                        max_iters)
-                st.set(sweeps=k, route=route, columns=len(S))
-            S = S[sub_idx]
-
-            # full-problem certificate: f32 K3 witness + margin
-            # everywhere, exact f64 on the gathered set
-            with _stage("cot.polish.witness", verbose):
-                r32 = torch.from_numpy(r.astype(np.float32)) \
-                    .to(problem.device)
-                z_f32 = neg_at_r_t(problem.A_t, r32, zeros_n, 0.0) \
-                    .cpu().numpy().astype(np.float64)
-                if lam2 != 0.0:
-                    xfull32 = np.zeros(n, np.float32)
-                    xfull32[S] = xs.astype(np.float32)
-                    z_f32 -= lam2 * xfull32
-                margin = gamma * cn_safe * float(np.linalg.norm(r))
-                ub = (np.abs(z_f32) + margin if kind == "l1"
-                      else np.maximum(z_f32 + margin, 0.0))
-                x_sf = np.zeros(len(S_full), np.float64)
-                x_sf[sub_idx] = xs
-                z_S = exact_z(S_full, r, As, x_sf)
-                ub[S_full] = (np.abs(z_S) if kind == "l1"
-                              else np.maximum(z_S, 0.0))
-
-            def certify(ub_now):
-                # ub_now upper-bounds the dual norm: the feasibility cap
-                # lam1 / max(ub) is conservative
-                feas = lam1 / max(float(ub_now.max()), 1e-300)
-                aug = float(r @ r + lam2 * (xs @ xs))
-                alpha = min(max(float(-(r @ b)) / max(aug, 1e-300), 0.0),
-                            feas)
-                primal = 0.5 * aug + float(pen_s.value(xs))
-                dual = alpha * float(-(r @ b)) - 0.5 * alpha * alpha * aug
-                gap = primal - dual
-                return gap / max(abs(primal), np.finfo(np.float64).tiny), \
-                    gap, primal
-
-            rel, gap, primal = certify(ub)
-            if rel > tol:
-                # the margin may be all that pushes near-boundary columns
-                # over: replace their witnesses with exact f64 values
-                near = np.setdiff1d(
-                    np.nonzero(ub >= lam1 * (1.0 - 1e-6))[0], S_full)
-                if len(near) > 8192:
-                    near = near[np.argsort(-ub[near])[:8192]]
-                if len(near):
-                    with _stage("cot.polish.near", verbose,
-                                columns=len(near)):
-                        z_near = exact_z(near, r)
-                        ub[near] = (np.abs(z_near) if kind == "l1"
-                                    else np.maximum(z_near, 0.0))
-                        rel, gap, primal = certify(ub)
-            if best is None or rel < best[3]:
-                best = (xs.copy(), S.copy(), k, rel, gap, primal)
-            if rel <= tol:
-                break
-            # expand with the violating / nearest-boundary columns
-            outside = np.setdiff1d(
-                np.nonzero(ub >= lam1 * (1.0 - 1e-9))[0], S)
-            if len(outside) == 0:
-                cand = np.setdiff1d(np.argsort(-ub)[:2 * len(S)], S)
-                if len(cand) == 0:
-                    break
-                outside = cand[np.argsort(-ub[cand])[:len(S)]]
-            x_np = np.zeros(n, np.float64)
-            x_np[S] = xs
-            S = np.sort(np.concatenate([S, outside]))
-
-    xs, S, k, rel, gap, primal = best
-    x_full = np.zeros(n, dtype=np.float64)
-    x_full[S] = xs
-    return PolishResult(
-        x=x_full, rel_gap=float(rel), gap=float(gap), primal=float(primal),
-        kept=int(len(S)), iterations=k, wall_time_s=0.0, gather_s=gather_s,
-    ), rounds
-
-
-def _polish_support_group(problem, x, *, tol, max_iters, gap_every,
-                          A_host, b_host, max_expand,
-                          verbose) -> tuple[PolishResult, int]:
-    """``polish_support`` for group_l2, with GROUPS as the unit: the f64
-    solve runs on the support's groups (plus expansions) and the full
-    certificate takes, per group outside them, the norm of the per-column
-    bounds |z_j| + gamma ||A_j|| ||r|| >= ||z_g|| (exact f64 on the
-    gathered groups).  Returns as ``_polish_support_sep``."""
-    m, n = problem.m, problem.n
-    lam1 = float(problem.penalty.lam1)
-    lam2 = float(problem.lam2)
-    ngroups = problem.penalty.ngroups
-    gsize = n // ngroups
-    weights = problem.penalty.weights
-
-    def columns(idx):
-        if A_host is None:
-            return _device_columns(problem, idx), "device"
-        return _gather_cols(A_host, idx, np.float32)
-
-    def group_cols(groups):
-        return (groups[:, None] * gsize + np.arange(gsize)[None, :]) \
-            .reshape(-1)
-
-    with _stage("cot.polish.setup", verbose):
-        w = (np.ones(ngroups) if weights is None
-             else weights.detach().cpu().numpy().astype(np.float64))
-        b = np.asarray(problem.b.cpu().numpy() if b_host is None
-                       else b_host, dtype=np.float64)
-        x_np = (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
-                else np.asarray(x)).astype(np.float64)
-        G = np.nonzero(x_np.reshape(ngroups, gsize).any(axis=1))[0]
-        if len(G) == 0:
-            G = np.array([0])
-        eps = float(np.finfo(np.float32).eps)
-        gamma = witness_gamma(m)
-        cn_safe = _col_norms64(problem) * (1.0 + 4 * eps) + 1e-12
-        zeros_n = torch.zeros((n,), dtype=torch.float32,
-                              device=problem.device)
-
-    best = None
-    gather_s = 0.0
-    rounds = 0
-    for _round in range(max_expand + 1):
-        rounds += 1
-        with span("cot.polish.round", index=_round):
-            cols = group_cols(G)
+    best, gather_s = None, 0.0
+    for rounds in range(1, max_expand + 2):
+        with span("cot.polish.round", index=rounds - 1):
+            cols = unit.cols(U)
             with _stage("cot.polish.gather", verbose,
                         columns=len(cols)) as st:
-                As, path = columns(cols)
-                st.set(bytes=int(As.nbytes), source=path)
+                As, source = gather(cols)
+                st.set(bytes=int(As.nbytes), source=source)
             gather_s += st.seconds
-            pen_s = _NpPenalty("group_l2", lam1, len(G), w[G])
+            pen_s = unit.penalty(U)
             with _stage("cot.polish.cd64", verbose) as st:
-                xs, sub_idx, k, _, _, _, r = _cd64_group(
-                    As, b, lam2, pen_s, x_np[cols], tol * 0.5, max_iters,
-                    gap_every=gap_every)
-                st.set(sweeps=k, kept=len(sub_idx))
+                xs, sub_idx, k, _, _, _, r, route = cd(
+                    As, b, lam2, pen_s, x_np[cols], tol * 0.5, max_iters)
+                st.set(sweeps=k, route=route, columns=len(cols),
+                       kept=len(sub_idx))
+            x_cols = np.zeros(len(cols), np.float64)
+            x_cols[sub_idx] = xs
+            U_kept, pos = unit.kept(U, sub_idx)
+            xk = x_cols[pos]
 
-            # full-problem certificate: f32 K3 witness + margin per
-            # column, aggregated per group; exact f64 on the gathered
-            # columns.  The group CD may have dropped zero groups: scatter
-            # through sub_idx
+            # full-problem certificate: f32 K3 witness + margin on every
+            # column, exact f64 on the gathered ones
             with _stage("cot.polish.witness", verbose):
-                r32 = torch.from_numpy(r.astype(np.float32)) \
-                    .to(problem.device)
-                z_f32 = neg_at_r_t(problem.A_t, r32, zeros_n, 0.0) \
+                r32 = torch.from_numpy(r.astype(np.float32)).to(dev)
+                z = neg_at_r_t(problem.A_t, r32, zeros_n, 0.0) \
                     .cpu().numpy().astype(np.float64)
-                x_cols = np.zeros(len(cols), np.float64)
-                x_cols[sub_idx] = xs
-                zbar = (np.abs(z_f32)
-                        + gamma * cn_safe * float(np.linalg.norm(r)))
-                zbar[cols] = np.abs(_gemv_t_mixed(As, r, lam2, x_cols))
-                ub_g = np.sqrt((zbar ** 2).reshape(ngroups, gsize)
-                               .sum(axis=1))
+                err = gamma_cn * float(np.linalg.norm(r))
+                z[cols] = exact_z(cols, r, As, x_cols)
+                err[cols] = 0.0
+                ub = unit.bound(z, err)
 
             def certify(ub_now):
-                # ub_now bounds each group's ||z_g||: the feasibility cap
+                # ub_now bounds each unit's dual norm: the feasibility cap
                 # lam1 / max(ub / w) is conservative
-                feas = lam1 / max(float(np.max(ub_now / w)), 1e-300)
-                aug = float(r @ r + lam2 * (x_cols @ x_cols))
-                alpha = min(max(float(-(r @ b)) / max(aug, 1e-300), 0.0),
-                            feas)
-                primal = 0.5 * aug + float(pen_s.value(x_cols))
-                dual = alpha * float(-(r @ b)) - 0.5 * alpha * alpha * aug
-                gap = primal - dual
-                return gap / max(abs(primal), np.finfo(np.float64).tiny), \
-                    gap, primal
+                return _gap_from_parts(r, b, lam2, pen_s, xk, feas=lam1 / max(
+                    float(np.max(ub_now / w)), 1e-300))[:3]
 
-            rel, gap, primal = certify(ub_g)
+            gap, primal, rel = certify(ub)
             if rel > tol:
-                # the margin may be all that pushes near-boundary groups
+                # the margin may be all that pushes near-boundary units
                 # over: replace their bounds with exact f64 values
                 near = np.setdiff1d(
-                    np.nonzero(ub_g >= lam1 * w * (1.0 - 1e-6))[0], G)
-                if len(near) > 64:
-                    near = near[np.argsort(-(ub_g / w)[near])[:64]]
+                    np.nonzero(ub >= lam1 * w * (1.0 - 1e-6))[0], U)
+                if len(near) > unit.near_cap:
+                    near = near[np.argsort(-(ub / w)[near])[:unit.near_cap]]
                 if len(near):
+                    near_cols = unit.cols(near)
                     with _stage("cot.polish.near", verbose,
-                                columns=len(near) * gsize):
-                        A_near, _ = columns(group_cols(near))
-                        z_near = np.abs(_gemv_t_mixed(A_near, r))
-                        ub_g[near] = np.sqrt(
-                            (z_near ** 2).reshape(len(near), gsize)
-                            .sum(axis=1))
-                        rel, gap, primal = certify(ub_g)
+                                columns=len(near_cols)):
+                        ub[near] = unit.bound(exact_z(near_cols, r), 0.0)
+                        gap, primal, rel = certify(ub)
             if best is None or rel < best[3]:
-                best = (x_cols.copy(), cols.copy(), k, rel, gap, primal)
+                best = (xk.copy(), cols[pos].copy(), k, rel, gap, primal)
             if rel <= tol:
                 break
-            # expand with the violating / nearest-boundary groups
+            # expand with the violating / nearest-boundary units
             outside = np.setdiff1d(
-                np.nonzero(ub_g >= lam1 * w * (1.0 - 1e-9))[0], G)
+                np.nonzero(ub >= lam1 * w * (1.0 - 1e-9))[0], U_kept)
             if len(outside) == 0:
-                cand = np.setdiff1d(np.argsort(-(ub_g / w))[:2 * len(G)],
-                                    G)
+                cand = np.setdiff1d(np.argsort(-(ub / w))[:2 * len(U_kept)],
+                                    U_kept)
                 if len(cand) == 0:
                     break
-                outside = cand[:max(len(G) // 2, 1)]
+                outside = unit.pick(cand, ub / w, len(U_kept))
             x_np = np.zeros(n, np.float64)
-            x_np[cols] = x_cols
-            G = np.sort(np.concatenate([G, outside]))
+            x_np[cols[pos]] = xk
+            U = np.sort(np.concatenate([U_kept, outside]))
 
-    x_cols, cols, k, rel, gap, primal = best
+    xk, kcols, k, rel, gap, primal = best
     x_full = np.zeros(n, dtype=np.float64)
-    x_full[cols] = x_cols
+    x_full[kcols] = xk
     return PolishResult(
         x=x_full, rel_gap=float(rel), gap=float(gap), primal=float(primal),
-        kept=int(len(cols)), iterations=k, wall_time_s=0.0,
-        gather_s=gather_s,
+        kept=len(kcols), iterations=k, wall_time_s=0.0, gather_s=gather_s,
     ), rounds
 
 

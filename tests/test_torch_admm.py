@@ -49,14 +49,7 @@ from convex_optimization_tpu_torch.core.problem import (
 )
 from convex_optimization_tpu_torch.solvers import admm as t_admm
 from convex_optimization_tpu_torch.solvers.common import SolverConfig
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_threads():
-    prev = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(prev)
+from tests.torch_threads import worker_threads  # noqa: F401
 
 
 def _pair(seed, m, n, kind="l1", ngroups=0, lam2=0.0):

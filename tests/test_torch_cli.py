@@ -43,6 +43,7 @@ from convex_optimization_tpu_torch.core.datagen import (
 )
 from convex_optimization_tpu_torch.core.objective import duality_gap
 from convex_optimization_tpu_torch.utils import checkpoint as ckpt
+from tests.torch_threads import worker_threads  # noqa: F401
 
 M, N = 200, 800
 CUSTOM = ["--m", str(M), "--n", str(N), "--polish", "--method",

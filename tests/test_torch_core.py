@@ -44,19 +44,12 @@ from convex_optimization_tpu_torch.core.problem import (
 from convex_optimization_tpu_torch.models.penalties import Penalty
 from convex_optimization_tpu_torch.ops.bcd_sweep import pick_block_size_t
 from convex_optimization_tpu_torch.utils import native
+from tests.torch_threads import worker_threads  # noqa: F401
 
 PORT_DIR = pathlib.Path(cot.__file__).parent
 
 KINDS = [("l1", 0, None), ("nonneg_l1", 0, None),
          ("group_l2", 16, np.linspace(0.5, 2.0, 16))]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_threads():
-    prev = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(prev)
 
 
 def _penalties(kind, ngroups, weights, lam1=0.37):

@@ -32,6 +32,7 @@ from convex_optimization_tpu.utils import native as jnative
 from convex_optimization_tpu_torch.core import datagen as pdg
 from convex_optimization_tpu_torch.core.objective import lambda_max
 from convex_optimization_tpu_torch.utils import native as pnative
+from tests.torch_threads import worker_threads  # noqa: F401
 
 NAMES = ("config1", "config2", "config3", "config4", "config5")
 

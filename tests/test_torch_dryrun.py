@@ -9,6 +9,7 @@ import os
 import re
 
 import convex_optimization_tpu_torch.dryrun as dryrun
+from tests.torch_threads import worker_threads  # noqa: F401
 
 SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "convex_optimization_tpu_torch", "dryrun.py")

@@ -34,17 +34,10 @@ from convex_optimization_tpu_torch.ops.matvec import (
 )
 from convex_optimization_tpu_torch.solvers.common import SolverConfig
 from convex_optimization_tpu_torch.solvers.fista import fista, init_state
+from tests.torch_threads import worker_threads  # noqa: F401
 
 CASES = [("l1", 0.0, 0), ("l1", 1e-2, 0), ("nonneg_l1", 0.0, 0),
          ("group_l2", 0.0, 32)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_threads():
-    prev = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(prev)
 
 
 def _instances(kind, lam2, ngroups, seed=21, m=64, n=256):

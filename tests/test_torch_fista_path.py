@@ -32,17 +32,10 @@ import convex_optimization_tpu_torch as cot
 from convex_optimization_tpu_torch.core.problem import problem_from_numpy
 from convex_optimization_tpu_torch.ops import _build
 from convex_optimization_tpu_torch.solvers.common import SolverConfig
+from tests.torch_threads import worker_threads  # noqa: F401
 
 M, N = 64, 256
 PATH_CFG = dict(tol=1e-5, max_iters=4000, gap_every=10, stall_checks=20)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_threads():
-    prev = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(prev)
 
 
 def _pair(seed, kind, lam2=0.0, ngroups=0):

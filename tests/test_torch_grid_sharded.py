@@ -60,6 +60,7 @@ from convex_optimization_tpu_torch.parallel.mesh import (
 from test_torch_row_sharded import _instance, _pens
 from test_torch_rowgrid_ranks import run_layout
 from test_torch_sharded_path import _jax_problem, _raised, _screen_margin
+from tests.torch_threads import worker_threads  # noqa: F401
 
 R = C = 2
 M, N, BLOCK = 128, 256, 32

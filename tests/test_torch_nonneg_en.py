@@ -28,6 +28,7 @@ from convex_optimization_tpu_torch.core.datagen import (
 )
 from convex_optimization_tpu_torch.utils import trace
 from tests import reference_en as ref
+from tests.torch_threads import worker_threads  # noqa: F401
 
 M, N, LAM2, TOL = 200, 1000, 1e-3, 1e-6
 SEEDS = (0, 1, 2)

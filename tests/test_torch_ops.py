@@ -80,15 +80,7 @@ from convex_optimization_tpu_torch.ops.matvec import (
     spectral_norm_sq_t,
     witness_gamma,
 )
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_threads():
-    # the suite runs under several xdist workers: keep torch to 2 threads
-    prev = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(prev)
+from tests.torch_threads import worker_threads  # noqa: F401
 
 
 def _arrays(m, n, seed, kind="l1", sparse=0.1):

@@ -73,18 +73,10 @@ from convex_optimization_tpu_torch.ops.bcd_sweep_batch import (
 from convex_optimization_tpu_torch.ops.matvec import block_power_t
 from convex_optimization_tpu_torch.solvers.common import SolverConfig
 from convex_optimization_tpu_torch.solvers.cv import kfold_train_masks
+from tests.torch_threads import worker_threads  # noqa: F401
 
 M, N, B = 64, 256, 32
 NB = N // B
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_threads():
-    # the suite runs under several xdist workers: keep torch to 2 threads
-    prev = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(prev)
 
 
 def _t(a):

@@ -53,6 +53,7 @@ if ROOT not in sys.path:
 
 import chip_smoke as cs  # noqa: E402
 from test_torch_sharded_ranks import run_cpu_ranks  # noqa: E402
+from tests.torch_threads import worker_threads  # noqa: E402,F401
 
 #: b as given (-1) and b[i] one ulp up
 BCD_NUDGES = (-1, 0, 1, 2, 3, 7)

@@ -33,6 +33,7 @@ from convex_optimization_tpu_torch.core.datagen import (
     make_lasso_instance_host,
 )
 from convex_optimization_tpu_torch.solvers import polish as PPol
+from tests.torch_threads import worker_threads  # noqa: F401
 
 TOL = 1e-10
 CASES = [("l1", 0, 0.0, False), ("nonneg_l1", 0, 1e-3, False),

@@ -58,6 +58,7 @@ from convex_optimization_tpu_torch.parallel.mesh import RowGroup
 from convex_optimization_tpu_torch.solvers.common import SolverConfig
 from test_torch_rowgrid_ranks import run_layout
 from test_torch_sharded_path import _jax_problem, _raised, _screen_margin
+from tests.torch_threads import worker_threads  # noqa: F401
 
 P = 2
 M, N, BLOCK, NGROUPS, LAM2 = 128, 256, 32, 16, 1e-2

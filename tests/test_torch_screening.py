@@ -32,16 +32,9 @@ from convex_optimization_tpu_torch.solvers.screening import (
     compact_problem,
     gap_safe_keep_mask,
 )
+from tests.torch_threads import worker_threads  # noqa: F401
 
 M, N = 96, 384
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_threads():
-    prev = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(prev)
 
 
 def _instance(seed, kind, ngroups=0, lam2=0.0):

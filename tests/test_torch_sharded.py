@@ -49,6 +49,7 @@ from test_torch_sharded_ranks import (
     run_cpu_ranks,
     solve_job,
 )
+from tests.torch_threads import worker_threads  # noqa: F401
 
 M, N, BLOCK = 64, 256, 16
 FISTA_CFG = dict(tol=1e-5, max_iters=300, gap_every=10)

@@ -68,6 +68,7 @@ from test_torch_sharded_ranks import (
     solve_job,
     solves_and_paths_job,
 )
+from tests.torch_threads import worker_threads  # noqa: F401
 
 M, N, BLOCK = 64, 256, 16
 NB = 512              # the batched paths: B = 128, two blocks a rank

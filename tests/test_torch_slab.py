@@ -33,18 +33,11 @@ from convex_optimization_tpu_torch.ops.bcd_sweep_slab import (
     sweep_slab_t_plain,
 )
 from convex_optimization_tpu_torch.ops.matvec import block_power_t
+from tests.torch_threads import worker_threads  # noqa: F401
 
 M, N, B = 64, 1024, 256
 CASES = [("l1", 0.0, 0), ("l1", 0.3, 0), ("nonneg_l1", 0.0, 0),
          ("group_l2", 0.0, 16)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_threads():
-    prev = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(prev)
 
 
 def _case(kind, lam2, ngroups, seed=0):

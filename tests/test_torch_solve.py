@@ -28,17 +28,10 @@ from convex_optimization_tpu_torch.core.datagen import (
 )
 from convex_optimization_tpu_torch.ops import _build
 from convex_optimization_tpu_torch.solvers.common import SolverConfig
+from tests.torch_threads import worker_threads  # noqa: F401
 
 KW = dict(block_size=40, gap_every=10, stall_checks=15, tol=1e-6,
           max_iters=20_000)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _few_threads():
-    prev = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(prev)
 
 
 @pytest.mark.parametrize("kind,lam2", [("l1", 0.0), ("nonneg_l1", 0.05)])

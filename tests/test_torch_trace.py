@@ -32,6 +32,7 @@ from convex_optimization_tpu_torch.core.datagen import (
 )
 from convex_optimization_tpu_torch.solvers.common import SolverConfig
 from convex_optimization_tpu_torch.utils import trace
+from tests.torch_threads import worker_threads  # noqa: F401
 
 CPU = [ProfilerActivity.CPU]
 PATH_CFG = SolverConfig(tol=1e-6, max_iters=2000, gap_every=10,
@@ -266,9 +267,11 @@ def test_polish_stages_and_gather_s(kind, capsys):
 
 
 def test_cli_profile_traces_the_polish(tmp_path, capsys):
+    # --max-iters 200: the f32 solve stops above 1e-7 and the polish runs
     prof = tmp_path / "prof"
     assert main(["--device", "cpu", "--m", "96", "--n", "384", "--tol",
-                 "1e-7", "--polish", "--profile", str(prof)]) == 0
+                 "1e-7", "--max-iters", "200", "--polish", "--profile",
+                 str(prof)]) == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["certified"]
     assert "achieved_gb_s" not in out and "fraction_of_hbm_peak" not in out

@@ -36,6 +36,7 @@ from convex_optimization_tpu_torch.core.problem import problem_from_numpy
 from convex_optimization_tpu_torch.utils import checkpoint as ckpt
 from convex_optimization_tpu_torch.utils import metrics as M
 from convex_optimization_tpu_torch.utils import plotting
+from tests.torch_threads import worker_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("kind,ngroups,lam2", [
